@@ -1,0 +1,181 @@
+"""Weights carried from the JAX package to the port.
+
+Input: a JAX variables tree (nested dicts of arrays; numpy arrays, or
+anything ``np.asarray`` takes) as ``remfx_tpu`` builds or loads it.
+Output: a ``state_dict`` of torch tensors for the port's module, to be
+loaded with ``load_state_dict(strict=True)``.
+
+* ``cnn14_state_dict`` is the inverse of
+  ``remfx_tpu/compat/torch_import.py:convert_cnn14``.
+* ``demucs_state_dict`` is a copy of ``torch_import.py:export_demucs``
+  (torchaudio naming), ending in torch tensors.
+
+Layouts: flax conv ``(kh, kw, in, out)`` / ``(k, in, out)`` -> torch
+``(out, in, kh, kw)`` / ``(out, in, k)``; Dense ``(in, out)`` -> Linear
+``(out, in)``; BatchNorm ``params {scale, bias}`` + ``batch_stats {mean,
+var}`` -> ``weight``, ``bias``, ``running_mean``, ``running_var``.
+Every leaf of the JAX tree must be used: a leaf left over raises.
+
+No code here reads ``ckpts/``: the vendored checkpoints are orbax
+directories that only the JAX package reads, so on a machine without JAX
+the port runs seeded weights.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class _Leaves:
+    """Reads leaves of a nested-dict tree by path and remembers which were
+    read, so that ``check_all_used`` can reject a leaf left over."""
+
+    def __init__(self, tree: dict):
+        self.tree = tree
+        self.used: set[tuple] = set()
+
+    def get(self, *path) -> np.ndarray:
+        node = self.tree
+        for p in path:
+            node = node[p]
+        self.used.add(tuple(path))
+        return np.asarray(node, dtype=np.float32)
+
+    def subtree(self, *path) -> dict:
+        node = self.tree
+        for p in path:
+            node = node[p]
+        return node
+
+    def check_all_used(self):
+        left = []
+
+        def walk(node, path):
+            if isinstance(node, dict) or hasattr(node, "items"):
+                for k, v in node.items():
+                    walk(v, path + (k,))
+            elif path not in self.used:
+                left.append("/".join(map(str, path)))
+
+        walk(self.tree, ())
+        if left:
+            raise ValueError(f"JAX leaves not carried over: {sorted(left)[:10]}")
+
+
+def _tensors(sd: dict) -> dict:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def cnn14_state_dict(variables: dict) -> dict:
+    """Cnn14 ``{'params', 'batch_stats'}`` -> port ``Cnn14`` state dict."""
+    leaves = _Leaves(variables)
+    sd: dict = {}
+    for blk in range(1, 7):
+        name = f"conv_block{blk}"
+        for conv in ("conv1", "conv2"):
+            k = leaves.get("params", name, conv, "kernel")  # (kh, kw, in, out)
+            sd[f"{name}.{conv}.weight"] = k.transpose(3, 2, 0, 1)
+        for bn in ("bn1", "bn2"):
+            sd[f"{name}.{bn}.weight"] = leaves.get("params", name, bn, "scale")
+            sd[f"{name}.{bn}.bias"] = leaves.get("params", name, bn, "bias")
+            sd[f"{name}.{bn}.running_mean"] = leaves.get(
+                "batch_stats", name, bn, "mean")
+            sd[f"{name}.{bn}.running_var"] = leaves.get(
+                "batch_stats", name, bn, "var")
+    sd["fc1.weight"] = leaves.get("params", "fc1", "kernel").T
+    sd["fc1.bias"] = leaves.get("params", "fc1", "bias")
+    heads = sorted(k for k in leaves.subtree("params") if k.startswith("head"))
+    for i in range(len(heads)):
+        sd[f"heads.{i}.weight"] = leaves.get("params", f"head{i}", "kernel").T
+        sd[f"heads.{i}.bias"] = leaves.get("params", f"head{i}", "bias")
+    leaves.check_all_used()
+    out = _tensors(sd)
+    for blk in range(1, 7):
+        for bn in ("bn1", "bn2"):
+            # a buffer PyTorch keeps for training; the JAX tree has none
+            out[f"conv_block{blk}.{bn}.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def _conv_w(k: np.ndarray) -> np.ndarray:
+    if k.ndim == 3:  # (k, in, out) -> (out, in, k)
+        return k.transpose(2, 1, 0)
+    return k.transpose(3, 2, 0, 1)  # (kh, kw, in, out) -> (out, in, kh, kw)
+
+
+def _emit_dconv(sd: dict, leaves: _Leaves, path: tuple, prefix: str):
+    tree = leaves.subtree(*path)
+    for d in sorted({int(n.split("_")[0][6:]) for n in tree}):
+        has_lstm = f"layers{d}_lstm" in tree
+        has_attn = f"layers{d}_attn" in tree
+        idx_conv2 = 3 + has_lstm + has_attn
+        get = lambda *p: leaves.get(*path, *p)  # noqa: E731
+        sd[f"{prefix}.{d}.0.weight"] = _conv_w(get(f"layers{d}_conv1", "kernel"))
+        sd[f"{prefix}.{d}.0.bias"] = get(f"layers{d}_conv1", "bias")
+        sd[f"{prefix}.{d}.1.weight"] = get(f"layers{d}_norm1", "scale")
+        sd[f"{prefix}.{d}.1.bias"] = get(f"layers{d}_norm1", "bias")
+        if has_lstm:
+            for k in tree[f"layers{d}_lstm"]["lstm"]:
+                sd[f"{prefix}.{d}.3.lstm.{k}"] = get(f"layers{d}_lstm", "lstm", k)
+            sd[f"{prefix}.{d}.3.linear.weight"] = get(
+                f"layers{d}_lstm", "linear", "kernel").T
+            sd[f"{prefix}.{d}.3.linear.bias"] = get(
+                f"layers{d}_lstm", "linear", "bias")
+        if has_attn:
+            j = 3 + has_lstm
+            for name in tree[f"layers{d}_attn"]:
+                sd[f"{prefix}.{d}.{j}.{name}.weight"] = get(
+                    f"layers{d}_attn", name, "kernel").T[..., None]
+                sd[f"{prefix}.{d}.{j}.{name}.bias"] = get(
+                    f"layers{d}_attn", name, "bias")
+        sd[f"{prefix}.{d}.{idx_conv2}.weight"] = _conv_w(
+            get(f"layers{d}_conv2", "kernel"))
+        sd[f"{prefix}.{d}.{idx_conv2}.bias"] = get(f"layers{d}_conv2", "bias")
+        sd[f"{prefix}.{d}.{idx_conv2 + 1}.weight"] = get(f"layers{d}_norm2", "scale")
+        sd[f"{prefix}.{d}.{idx_conv2 + 1}.bias"] = get(f"layers{d}_norm2", "bias")
+        sd[f"{prefix}.{d}.{idx_conv2 + 3}.scale"] = get(f"layers{d}_scale")
+
+
+_DEMUCS_LISTS = ("freq_encoder", "freq_decoder", "time_encoder", "time_decoder")
+
+
+def demucs_state_dict(variables: dict) -> dict:
+    """HDemucs ``{'params'}`` -> port ``HDemucs`` state dict (torchaudio
+    names; the module, not its wrapper)."""
+    leaves = _Leaves(variables)
+    params = leaves.subtree("params")
+    sd: dict = {}
+    for lname, tree in params.items():
+        if lname == "freq_emb":
+            sd["freq_emb.embedding.weight"] = leaves.get("params", lname, "weight")
+            continue
+        base, _, idx = lname.rpartition("_")
+        if base not in _DEMUCS_LISTS:
+            continue  # reported by check_all_used
+        tname = f"{base}.{idx}"
+        for sub in ("conv", "rewrite"):
+            if sub in tree:
+                sd[f"{tname}.{sub}.weight"] = _conv_w(
+                    leaves.get("params", lname, sub, "kernel"))
+                sd[f"{tname}.{sub}.bias"] = leaves.get("params", lname, sub, "bias")
+        for sub in ("norm1", "norm2"):
+            if sub in tree:
+                sd[f"{tname}.{sub}.weight"] = leaves.get("params", lname, sub, "scale")
+                sd[f"{tname}.{sub}.bias"] = leaves.get("params", lname, sub, "bias")
+        if "conv_tr_kernel" in tree:
+            # (k, in, out) in torch's tap order -> (in, out, k)
+            k = leaves.get("params", lname, "conv_tr_kernel").transpose(1, 2, 0)
+            # a freq decoder is 2d (weight (in, out, k, 1)) iff its rewrite
+            # is the 3x3 2d conv; the time-axis freq layer and every time
+            # decoder (including the rewrite-less empty one) are 1d
+            if base == "freq_decoder" and "rewrite" in tree and np.ndim(
+                    tree["rewrite"]["kernel"]) == 4:
+                k = k[..., None]
+            sd[f"{tname}.conv_tr.weight"] = k
+            sd[f"{tname}.conv_tr.bias"] = leaves.get("params", lname, "conv_tr_bias")
+        if "dconv" in tree:
+            _emit_dconv(sd, leaves, ("params", lname, "dconv"),
+                        f"{tname}.dconv.layers")
+    leaves.check_all_used()
+    return _tensors(sd)

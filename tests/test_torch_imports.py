@@ -1,0 +1,56 @@
+"""The port stands alone: importing it (and chip_smoke) loads no JAX, and
+no file of it imports jax, flax or the JAX package."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "remfx_tpu_torch"
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|remfx_tpu)\b")
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "import remfx_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "remfx_tpu_torch.__path__, 'remfx_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'flax', 'remfx_tpu.')) or m == 'remfx_tpu')\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    # every module of the slice was imported
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import_lines(path):
+    bad = [
+        (i + 1, line)
+        for i, line in enumerate(path.read_text().splitlines())
+        if _FORBIDDEN.match(line)
+    ]
+    assert not bad, bad
+
+
+def test_scan_pattern_spares_the_port_itself():
+    # the \b keeps remfx_tpu_torch out of the forbidden set
+    assert not _FORBIDDEN.match("from remfx_tpu_torch.ops import envelope")
+    assert _FORBIDDEN.match("from remfx_tpu.ops import stft")
+    assert _FORBIDDEN.match("import jax.numpy as jnp")
