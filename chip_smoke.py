@@ -15,6 +15,15 @@ use_all_effect_models, which must equal oracle bit for bit), and
 cpu_vs_card (clip 0 through detect and remove on the CPU with the same
 weights). Then the kernel summary line, and the result line last.
 
+The kernels phase holds the envelope's split kernel (the main path's)
+bit for bit to the serial kernel, on the demo batch and on an adversarial
+one (a loud hit then digital zeros at 250 ms release, an all-zero row, a
+row with cte_at = 0, and the corners of the attack and release ranges),
+and reports both kernels' times and how many chunks the split kernel's
+repair pass reran; one more JSON line before it times the split kernel
+over a grid of chunk lengths and warm-up lengths (the sweep that chose
+ops/envelope.py's CHUNK and WARM_TAU).
+
 Usage: python3 chip_smoke.py [--seed N]
 Needs one CUDA device: with none it exits non-zero and prints no result.
 """
@@ -40,7 +49,9 @@ from remfx_tpu_torch.fx import compressor
 from remfx_tpu_torch.models import make_cnn14, make_demucs
 from remfx_tpu_torch.models.wrappers import ModelWrapper
 from remfx_tpu_torch.ops import _build
-from remfx_tpu_torch.ops.envelope import envelope, envelope_plain
+from remfx_tpu_torch.ops import envelope as envelope_mod
+from remfx_tpu_torch.ops.envelope import (envelope, envelope_flags,
+                                          envelope_plain, envelope_serial)
 
 ROOT = Path(__file__).resolve().parent
 SR = 48000
@@ -95,24 +106,79 @@ def demo_clips() -> np.ndarray:
     return np.stack(clips).astype(np.float32)
 
 
-def time_kernel(fn, warmup: int = 3, reps: int = 20) -> float:
-    """Median ms of ``reps`` launches, each between CUDA events."""
+def time_kernel(fn, warmup: int = 3, rounds: int = 5, calls: int = 10) -> float:
+    """Median over ``rounds`` of the ms a call takes, each round ``calls``
+    back-to-back calls between two CUDA events."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
+def adversarial_batch(clips: torch.Tensor):
+    """(8, 262144) |x| and per-row coefficients that the bracket of the split
+    kernel cannot close everywhere: a 0.1 s hit then digital zeros at 250 ms
+    release, an all-zero row, cte_at = 0, then the ranges' corners."""
+    xa = clips.abs().contiguous()
+    xa[0, SR // 10:] = 0.0
+    xa[1] = 0.0
+    attack = torch.tensor([1.0, 10.0, 5e-4, 1.0, 1.0, 50.0, 50.0, 25.0])
+    release = torch.tensor([250.0, 100.0, 250.0, 10.0, 250.0, 10.0, 250.0,
+                            130.0])
+    at = compressor.ballistics_cte(attack, SR).to(xa.device).contiguous()
+    rl = compressor.ballistics_cte(release, SR).to(xa.device).contiguous()
+    return xa, at, rl
+
+
+def split_vs_serial(xa, at, rl) -> dict:
+    """The split kernel against the serial kernel: bitwise, and timed."""
+    got, unresolved = envelope_flags(xa, at, rl)
+    serial = envelope_serial(xa, at, rl)
+    equal = torch.equal(got, serial)
+    check(equal, "split kernel equals the serial kernel bit for bit")
+    return {"serial_equal": equal,
+            "walked_chunks": int(unresolved.sum().item()),
+            "chunks": unresolved.numel(),
+            "kernel_ms": time_kernel(lambda: envelope(xa, at, rl)),
+            "serial_ms": time_kernel(lambda: envelope_serial(xa, at, rl))}
+
+
+def sweep(batches: dict) -> list:
+    """Split kernel ms and rerun chunks over the chunk length and WARM_TAU,
+    on each batch; every point is checked against the serial kernel."""
+    serial = {name: envelope_serial(*args) for name, args in batches.items()}
+    keep = envelope_mod.CHUNK, envelope_mod.WARM_TAU
+    points = []
+    try:
+        for chunk in (256, 512, 1024, 2048):
+            for tau in (8.0, 12.0, 16.0, 20.0, 24.0, 32.0):
+                envelope_mod.CHUNK, envelope_mod.WARM_TAU = chunk, tau
+                point = {"chunk": chunk, "warm_tau": tau}
+                for name, args in batches.items():
+                    got, unresolved = envelope_flags(*args)
+                    check(torch.equal(got, serial[name]),
+                          f"split kernel equals the serial kernel ({point})")
+                    point[name] = {
+                        "kernel_ms": time_kernel(lambda: envelope(*args)),
+                        "walked_chunks": int(unresolved.sum().item())}
+                points.append(point)
+    finally:
+        envelope_mod.CHUNK, envelope_mod.WARM_TAU = keep
+    return points
+
+
 def kernels_phase(clips: torch.Tensor, gen: torch.Generator) -> dict:
-    """The envelope kernel against envelope_plain at the main path's shape."""
+    """The envelope kernel against envelope_plain at the main path's shape,
+    and against the serial kernel there and on the adversarial batch."""
     dev = clips.device
     xa = clips.abs().contiguous()
     p = compressor.sample_params(gen, B, COMP_RANGES, device=dev)
@@ -129,7 +195,11 @@ def kernels_phase(clips: torch.Tensor, gen: torch.Generator) -> dict:
     max_rel = (diff / peak).max().item()
     check(bool(torch.isfinite(got).all()), "envelope finite")
     check(max_rel <= ENV_TOL, f"envelope max_rel_err {max_rel} <= {ENV_TOL}")
-    kernel_ms = time_kernel(lambda: envelope(xa, at, rl))
+    demo = split_vs_serial(xa, at, rl)
+    adversarial = split_vs_serial(*adversarial_batch(clips))
+    print(json.dumps({"sweep": sweep({
+        "demo": (xa, at, rl), "adversarial": adversarial_batch(clips)})}),
+        flush=True)
     rows, steps = xa.shape
     n_bytes = (2 * rows * steps + 2 * rows) * 4  # x in, env out, 2 coefs
     n_ops = 4 * rows * steps  # per step: sub, 2 FMAs (as 1 op each), compare
@@ -141,11 +211,18 @@ def kernels_phase(clips: torch.Tensor, gen: torch.Generator) -> dict:
         "source": "remfx_tpu_torch/csrc/envelope.cu",
         "replaces": "remfx_tpu/ops/pallas_env.py:33",
         "shape": [rows, steps],
+        "chunk": envelope_mod.CHUNK,
+        "warm_tau": envelope_mod.WARM_TAU,
+        "device_kernels_per_call": 3,
         "max_abs_err": diff.max().item(),
         "max_rel_err": max_rel,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "ns_per_step": kernel_ms * 1e6 / steps,
+        "ms": demo["kernel_ms"],
+        "kernel_ms": demo["kernel_ms"],
+        "serial_ms": demo["serial_ms"],
+        "serial_equal": demo["serial_equal"] and adversarial["serial_equal"],
+        "walked_chunks": demo["walked_chunks"],
+        "chunks": demo["chunks"],
+        "adversarial": adversarial,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",

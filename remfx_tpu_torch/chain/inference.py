@@ -25,6 +25,7 @@ import torch
 
 from remfx_tpu_torch import ALL_EFFECTS, EFFECT_CLASS_NAMES
 from remfx_tpu_torch.utils.crop import causal_crop
+from remfx_tpu_torch.utils.device import resolve_device
 
 DEFAULT_ORDER = (
     "RandomPedalboardDistortion",
@@ -61,7 +62,11 @@ def threshold_detect(net, threshold: float):
 
 class ChainInference:
     """models: {effect class name: ModelWrapper}; classifier: a Cnn14 or
-    None. Every model is put in eval mode."""
+    None. Every model is put in eval mode. On a CUDA batch, ``detect`` and
+    ``remove`` switch TF32 off for matmuls and cuDNN
+    (``utils.device.resolve_device``), whoever built the models: a model
+    made on the CPU and moved with ``.to("cuda")`` would otherwise run its
+    convolutions in TF32, PyTorch's default for cuDNN."""
 
     def __init__(
         self,
@@ -83,12 +88,14 @@ class ChainInference:
         """Classifier labels for a batch: (B, 5) float {0, 1}."""
         if self.classifier is None:
             raise ValueError("no classifier configured")
+        resolve_device(x.device)
         return threshold_detect(self.classifier, self.threshold)(x)
 
     def remove(self, x: torch.Tensor, labels: torch.Tensor, order=None):
         """Apply the removal stages for the given labels (no classifier
         call). -> (y, labels)."""
         order = tuple(order) if order is not None else self.effect_order
+        resolve_device(x.device)
         y = x
         for name in order:
             if name not in self.models:
