@@ -28,11 +28,12 @@
 // past xa, and rounding keeps it there while 0 <= cte < 1.
 //
 //   pass 0  bounds_kernel, one block per row: lo and hi of the row.
-//   pass 1  chunks_kernel, one thread per (row, chunk of L samples), all in
-//           parallel. Each starts lo and hi W samples before its chunk,
-//           W = ceil(warm_tau / (1 - max(cte_at, cte_rl))) rounded up to a
-//           line: the bracket's gap shrinks by a factor max(cte_at, cte_rl)
-//           or less a step, so W is warm_tau time constants.
+//   pass 1  chunks_kernel, one thread per (row, chunk of L = kChunk
+//           samples), all in parallel. Each starts lo and hi W samples
+//           before its chunk, W = ceil(kWarmTau / (1 - max(cte_at, cte_rl)))
+//           rounded up to a line: the bracket's gap shrinks by a factor
+//           max(cte_at, cte_rl) or less a step, so W is kWarmTau time
+//           constants.
 //           A chunk within W of the row's start starts from the exact 0 at
 //           position 0 instead. If lo and hi are bitwise equal at the chunk's
 //           start, that start is exact and the chunk is resolved; otherwise
@@ -53,7 +54,8 @@
 // against pass 2: the gap closes by a factor e every time constant, so
 // closing it from the full range to one ulp of fp32 takes about 17 of
 // them, more where the level is far below the row's maximum; a shorter
-// W leaves more chunks, in longer runs, to pass 2. The warm-up re-reads
+// W leaves more chunks, in longer runs, to pass 2 (L = 1024 and 20 time
+// constants were chosen on the H100; see PERF.md). The warm-up re-reads
 // about (W + L) / L times the input, mostly from the 50 MB L2. Rows that
 // are 16-byte aligned are read as float4, 32 samples (one 128-byte line)
 // at a time, with the next line loaded while the current 32 steps run;
@@ -70,6 +72,10 @@ constexpr int kLine = 4 * kVec;    // 32 samples, 128 bytes
 constexpr int kBoundsThreads = 1024;
 // passes 1 and 2: one warp a block, so that the blocks spread over the SMs
 constexpr int kThreads = 32;
+// samples a pass-1 thread owns (a multiple of kLine), and the warm-up in
+// time constants; ops/envelope.py's CHUNK and WARM_TAU mirror them
+constexpr long long kChunk = 1024;
+constexpr float kWarmTau = 20.0f;
 
 __device__ __forceinline__ float ballistics_step(float xa, float& env,
                                                  float at, float rl) {
@@ -302,37 +308,37 @@ __global__ void bounds_kernel(const float* __restrict__ x,
   }
 }
 
-// Warm-up length W of a row: warm_tau time constants of the slower of the
+// Warm-up length W of a row: kWarmTau time constants of the slower of the
 // two coefficients, rounded up to a line; T (start from 0) where the
 // coefficients do not contract (outside [0, 1), or NaN).
 __device__ __forceinline__ long long warm_steps(float at, float rl,
-                                                float warm_tau, long long T) {
+                                                long long T) {
   const float c = fmaxf(at, rl);
   if (!(at >= 0.0f && rl >= 0.0f && c < 1.0f)) return T;
-  const float w = ceilf(warm_tau / (1.0f - c));
+  const float w = ceilf(kWarmTau / (1.0f - c));
   if (!(w < (float)T)) return T;
   return ((long long)w + kLine - 1) / kLine * kLine;
 }
 
-// Pass 1: thread i = b * n_chunks + c owns samples [c * L, (c + 1) * L).
+// Pass 1: thread i = b * n_chunks + c owns samples [c * L, (c + 1) * L),
+// L = kChunk.
 __global__ void chunks_kernel(const float* __restrict__ x,
                               const float* __restrict__ cte_at,
                               const float* __restrict__ cte_rl,
                               const float* __restrict__ bounds,
                               float* __restrict__ out,
                               unsigned char* __restrict__ unresolved,
-                              int rows, long long T, long long L,
-                              long long n_chunks, float warm_tau) {
+                              int rows, long long T, long long n_chunks) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows * n_chunks) return;
   const long long b = i / n_chunks;
-  const long long s = (i % n_chunks) * L;
-  const long long e = s + L < T ? s + L : T;
+  const long long s = (i % n_chunks) * kChunk;
+  const long long e = s + kChunk < T ? s + kChunk : T;
   const float* xr = x + b * T;
   float* orow = out + b * T;
   const float at = cte_at[b], rl = cte_rl[b];
 
-  long long from = s - warm_steps(at, rl, warm_tau, T);
+  long long from = s - warm_steps(at, rl, T);
   Bracket br{bounds[2 * b], bounds[2 * b + 1], at, rl};
   if (from <= 0) {  // the exact start: env[-1] = 0
     from = 0;
@@ -354,8 +360,7 @@ __global__ void repair_kernel(const float* __restrict__ x,
                               const float* __restrict__ cte_rl,
                               float* __restrict__ out,
                               const unsigned char* __restrict__ unresolved,
-                              int rows, long long T, long long L,
-                              long long n_chunks) {
+                              int rows, long long T, long long n_chunks) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows * n_chunks) return;
   const long long b = i / n_chunks;
@@ -366,8 +371,8 @@ __global__ void repair_kernel(const float* __restrict__ x,
   float* orow = out + b * T;
   const float at = cte_at[b], rl = cte_rl[b];
   for (; c < n_chunks && u[c]; ++c) {
-    const long long s = c * L;
-    const long long e = s + L < T ? s + L : T;
+    const long long s = c * kChunk;
+    const long long e = s + kChunk < T ? s + kChunk : T;
     Repair r{orow[s - 1], at, rl, orow, false};
     walk(xr, s, e, aligned16(xr + s) && aligned16(orow + s), r);
   }
@@ -381,28 +386,26 @@ __global__ void repair_kernel(const float* __restrict__ x,
 // cudaGetLastError() so that a refused launch is reported.
 
 // The split kernel: passes 0, 1 and 2. bounds is (rows, 2) fp32 scratch;
-// unresolved is (rows, ceil(T / L)) uint8 and says, after the call, which
-// chunks pass 2 reran. L (samples a pass-1 thread owns) is a positive
-// multiple of 32; warm_tau sets the warm-up length W (see warm_steps).
+// unresolved is (rows, ceil(T / kChunk)) uint8 and says, after the call,
+// which chunks pass 2 reran.
 extern "C" int remfx_envelope(const float* x, const float* cte_at,
                               const float* cte_rl, float* out, float* bounds,
                               unsigned char* unresolved, int rows, long long T,
-                              long long L, float warm_tau, void* stream) {
+                              void* stream) {
+  static_assert(kChunk > 0 && kChunk % kLine == 0, "chunks of whole lines");
   if (rows <= 0 || T <= 0) return 0;
-  if (L <= 0 || L % kLine != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n_chunks = (T + L - 1) / L;
+  const long long n_chunks = (T + kChunk - 1) / kChunk;
   const long long blocks = (rows * n_chunks + kThreads - 1) / kThreads;
   cudaError_t err;
 
   bounds_kernel<<<rows, kBoundsThreads, 0, st>>>(x, bounds, T);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   chunks_kernel<<<blocks, kThreads, 0, st>>>(x, cte_at, cte_rl, bounds, out,
-                                             unresolved, rows, T, L, n_chunks,
-                                             warm_tau);
+                                             unresolved, rows, T, n_chunks);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   repair_kernel<<<blocks, kThreads, 0, st>>>(x, cte_at, cte_rl, out,
-                                             unresolved, rows, T, L, n_chunks);
+                                             unresolved, rows, T, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,7 +43,8 @@ import torch
 from remfx_tpu_torch.ops import _build
 
 _SOURCE = "envelope"
-CHUNK = 1024  # samples a pass-1 thread owns (a multiple of 32)
+# kChunk and kWarmTau of csrc/envelope.cu, which the kernel compiles in
+CHUNK = 1024  # samples a pass-1 thread owns
 WARM_TAU = 20.0  # warm-up length W, in time constants 1 / (1 - cte)
 
 
@@ -81,8 +82,7 @@ def _check(x_abs, cte_at, cte_rl):
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.remfx_envelope.argtypes = [ptr] * 6 + [i32, i64, i64, ctypes.c_float,
-                                               ptr]
+    lib.remfx_envelope.argtypes = [ptr] * 6 + [i32, i64, ptr]
     lib.remfx_envelope_serial.argtypes = [ptr] * 4 + [i32, i64, ptr]
     lib.remfx_envelope.restype = lib.remfx_envelope_serial.restype = i32
     return lib
@@ -109,8 +109,7 @@ def _split(x_abs, cte_at, cte_rl):
                              device=x_abs.device)
     _launch(_lib().remfx_envelope, x_abs.data_ptr(), cte_at.data_ptr(),
             cte_rl.data_ptr(), out.data_ptr(), bounds.data_ptr(),
-            unresolved.data_ptr(), rows, T, CHUNK, WARM_TAU,
-            device=x_abs.device)
+            unresolved.data_ptr(), rows, T, device=x_abs.device)
     envelope.launches += 1
     return out, unresolved
 

@@ -15,6 +15,7 @@ in practice the error is far smaller, and the bound is asserted.
 bit, which proves the bracket and the repair walk on the CPU.
 """
 
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -27,8 +28,9 @@ from remfx_tpu.fx.compressor import envelope_scan
 from remfx_tpu.ops.pallas_env import envelope_pallas
 from remfx_tpu_torch.data.wav import read_wav
 from remfx_tpu_torch.fx.compressor import ballistics_cte
-from remfx_tpu_torch.ops.envelope import (WARM_TAU, envelope, envelope_flags,
-                                          envelope_plain, envelope_serial)
+from remfx_tpu_torch.ops.envelope import (CHUNK, WARM_TAU, envelope,
+                                          envelope_flags, envelope_plain,
+                                          envelope_serial)
 
 torch.set_num_threads(2)
 SR = 48000
@@ -256,6 +258,16 @@ def test_warm_up_rule():
     assert (W[:3].numpy() % 32 == 0).all()
     np.testing.assert_allclose(W[:3].numpy(), WARM_TAU * tau, rtol=0.03)
     assert W[3].item() == 1 << 20  # cte_rl rounds to 1: no contraction
+
+
+def test_chunk_and_warm_up_constants_match_the_kernel_source():
+    # the wrapper sizes the chunk flags by CHUNK; the kernel compiles kChunk in
+    src = (Path(__file__).resolve().parents[1] / "remfx_tpu_torch" / "csrc"
+           / "envelope.cu").read_text()
+    chunk = re.search(r"constexpr long long kChunk = (\d+);", src)
+    tau = re.search(r"constexpr float kWarmTau = ([\d.]+)f;", src)
+    assert int(chunk.group(1)) == CHUNK and CHUNK % 32 == 0
+    assert float(tau.group(1)) == WARM_TAU
 
 
 def test_serial_and_flags_wrappers_on_cpu():
