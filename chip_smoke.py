@@ -4,16 +4,25 @@
 Drives the port's main path once at full width, with seeded weights:
 compressor render of 8 demo clips of 262144 samples at 48 kHz through the
 hand-written envelope kernel -> Cnn14 detect (n_fft 2048, hop 512, 128
-mels) -> HDemucs removal (channels 48, nfft 4096, depth 6, residual
-wrapper) in the compressor slot of the chain.
+mels) -> the five removal slots in the chain's order: TCN (distortion;
+10 blocks, width 64, receptive field 6139, so every later stage and the
+output are 256006 samples long), HDemucs (compressor; channels 48, nfft
+4096, depth 6, residual wrapper) and three Large-DCUNet-20 (reverb,
+chorus, delay; stft kernel 512, "pad", identity_init), each at the
+config of the repo's trained checkpoint of that slot.
 
 Phases, each printing one JSON line with its elapsed seconds as it ends:
 device, build (nvcc for sm_90a of every csrc/*.cu), kernels (each kernel
 against its plain PyTorch version at the main path's shape, timed),
-render, detect, remove (detected labels, oracle compressor labels, and
-use_all_effect_models, which must equal oracle bit for bit), and
-cpu_vs_card (clip 0 through detect and remove on the CPU with the same
-weights). Then the kernel summary line, and the result line last.
+render, build_slots, detect, remove (detected labels; oracle with all five
+labels on, which use_all_effect_models must equal bit for bit; a mixed
+pattern that switches every slot on in some rows and off in others),
+dispatch (regroup and staged against single on 16 rows with an empty, a
+sub-batch and a dense stage; all three bit for bit with every label on),
+test_step (the chain's loss and metrics against the dry clips), and
+cpu_vs_card (clip 0 on the CPU with the same weights: the classifier and
+HDemucs at full width, the five-slot chain and test_step on its first
+65536 samples). Then the kernel summary line, and the result line last.
 
 The kernels phase holds the envelope's split kernel (the main path's)
 bit for bit to the serial kernel, on the demo batch and on an adversarial
@@ -45,11 +54,12 @@ from remfx_tpu_torch import ALL_EFFECTS
 from remfx_tpu_torch.chain.inference import ChainInference
 from remfx_tpu_torch.data.wav import read_wav
 from remfx_tpu_torch.fx import compressor
-from remfx_tpu_torch.models import make_cnn14, make_demucs
+from remfx_tpu_torch.models import make_cnn14, make_dcunet, make_demucs, make_tcn
 from remfx_tpu_torch.models.wrappers import ModelWrapper
 from remfx_tpu_torch.ops import _build
 from remfx_tpu_torch.ops.envelope import (envelope, envelope_flags,
                                           envelope_plain, envelope_serial)
+from remfx_tpu_torch.utils.regroup import bucket_size
 
 ROOT = Path(__file__).resolve().parent
 SR = 48000
@@ -65,7 +75,20 @@ COMP_RANGES = {"min_threshold_db": -42.0, "max_threshold_db": -20.0,
                "min_ratio": 1.5, "max_ratio": 6.0,
                "min_attack_ms": 1.0, "max_attack_ms": 50.0,
                "min_release_ms": 10.0, "max_release_ms": 250.0}
+# ckpts/tcn_distortion_aug/hparams.json (kernel 7, dilation growth 2 and
+# stack 10 are make_tcn's defaults): receptive field 6139
+TCN = dict(nblocks=10, channel_width=64)
+T_OUT = T - 6139 + 1  # 256006: every stage after the TCN, and the output
+# ckpts/dcunet_{reverb_aug_r4,chorus_aug_r5,delay_aug_r5}/hparams.json
+DCUNET = dict(architecture="Large-DCUNet-20", stft_kernel_size=512,
+              fix_length_mode="pad", identity_init=True, norm_type="bN")
 SLOT = "RandomPedalboardCompressor"
+# rows on per effect of the dispatch phase's 16: an empty stage (the
+# TCN: crop only), sub-batches of 8 (5 and 8 rows) and dense stages
+# (more than 0.75 x 16 rows, or a bucket of 16)
+DISPATCH_COUNTS = {"distortion": 0, "compressor": 5, "reverb": 14,
+                   "chorus": 8, "delay": 12}
+CPU_T = 65536  # samples of clip 0 in the CPU run of the five-slot chain
 ENV_TOL = 2e-4  # x row peak: fp32 rounding through the 1/(1-cte) pole
 CPU_TOL = 1e-3  # card vs CPU, TF32 off on both
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -214,6 +237,136 @@ def kernels_phase(clips: torch.Tensor, gen: torch.Generator) -> dict:
     }
 
 
+def build_slots(dev):
+    """The Cnn14 classifier and the five removal slots at full width, with
+    the weights torch draws after ``torch.manual_seed``."""
+    cls = make_cnn14(num_classes=len(ALL_EFFECTS), sample_rate=SR, device=dev,
+                     **CNN14)
+    tcn = make_tcn(sample_rate=SR, device=dev, **TCN)
+    check(tcn.output_length(T) == T_OUT, f"TCN output length {T_OUT}")
+    # residual wrapper with torch-default (nonzero) init: identity_init's
+    # zeroed final convs would make the stage a no-op
+    demucs = ModelWrapper(make_demucs(sample_rate=SR, device=dev, **DEMUCS).module,
+                          name="demucs", residual=True)
+    slots = {"RandomPedalboardDistortion": tcn, SLOT: demucs}
+    for name in ("RandomPedalboardReverb", "RandomPedalboardChorus",
+                 "RandomPedalboardDelay"):
+        slots[name] = make_dcunet(sample_rate=SR, device=dev, **DCUNET)
+    return cls, slots
+
+
+def per_effect(labels: torch.Tensor) -> dict:
+    return dict(zip(ALL_EFFECTS, labels.sum(dim=0).int().tolist()))
+
+
+def rms(x: torch.Tensor) -> float:
+    return x.double().pow(2).mean().sqrt().item()
+
+
+def bits_pattern(rows: int, dev) -> torch.Tensor:
+    """Row i has the bits of i (mod 8) in slots 0-2 (reverb, chorus, delay)
+    and those of 7 - i in slots 3-4 (distortion, compressor): every slot
+    on in some rows and off in others."""
+    v = [(i % 8) | ((7 - i % 8) << 3) for i in range(rows)]
+    return torch.tensor([[(x >> j) & 1 for j in range(len(ALL_EFFECTS))]
+                         for x in v], dtype=torch.float32, device=dev)
+
+
+def spread_labels(counts: dict, rows: int, dev) -> torch.Tensor:
+    """(rows, 5) labels with ``counts[effect]`` rows on, spread out."""
+    labels = torch.zeros(rows, len(ALL_EFFECTS))
+    for effect, n in counts.items():
+        j = ALL_EFFECTS.index(effect)
+        labels[[(i * (2 * j + 3) + j) % rows for i in range(rows)][:n], j] = 1.0
+    return labels.to(dev)
+
+
+def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the peak of ``want`` (in float64)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def dispatch_phase(slots: dict, wet, clips, y_oracle) -> dict:
+    """Regroup and staged against single on 16 rows (the rendered batch
+    and its dry clips) whose labels give every kind of regroup stage: an
+    empty slot (crop only), sub-batches (a bucket of 8) and dense stages;
+    then all three modes with every label on, bit for bit."""
+    x = torch.cat([wet, clips[:, None, :]])
+    rows = x.shape[0]
+    labels = spread_labels(DISPATCH_COUNTS, rows, x.device)
+    kinds = {e: "empty" if n == 0 else
+             "sub_batch" if (bucket_size(n, rows) or rows) < rows else "dense"
+             for e, n in DISPATCH_COUNTS.items()}
+    check({"empty", "sub_batch", "dense"} <= set(kinds.values()),
+          "the dispatch pattern has an empty, a sub-batch and a dense stage")
+    out, seconds = {}, {}
+    for mode in ("single", "staged", "regroup"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[mode], _ = ChainInference(slots, SR, dispatch=mode).run(x, labels)
+        torch.cuda.synchronize()
+        seconds[mode] = time.perf_counter() - t0
+        check(out[mode].shape == (rows, 1, T_OUT), f"{mode} output (16, 1, {T_OUT})")
+        check(bool(torch.isfinite(out[mode]).all()), f"{mode} output finite")
+    errs = {m: max_rel(out[m], out["single"]) for m in ("staged", "regroup")}
+    for m, e in errs.items():
+        check(e <= CPU_TOL, f"{m} vs single {e} <= {CPU_TOL} x peak")
+    ones = torch.ones(B, len(ALL_EFFECTS), device=wet.device)
+    all_on_equal = all(
+        torch.equal(ChainInference(slots, SR, dispatch=mode).run(wet, ones)[0],
+                    y_oracle) for mode in ("staged", "regroup"))
+    check(all_on_equal, "staged and regroup with every label on equal single "
+          "bit for bit")
+    return {"rows": rows, "per_effect": DISPATCH_COUNTS, "stage_kinds": kinds,
+            "staged_max_rel_err": errs["staged"],
+            "regroup_max_rel_err": errs["regroup"],
+            "staged_bit_equal": torch.equal(out["staged"], out["single"]),
+            "all_on_bit_equal": all_on_equal, "mode_seconds": seconds}
+
+
+def cpu_vs_card(cls, slots: dict, wet, dry) -> dict:
+    """Clip 0 on the CPU with the same weights: the classifier and the
+    HDemucs slot at full width (with an fp64 run, which says which side
+    carries the error), then the five-slot chain and test_step on its
+    first CPU_T samples."""
+    cpu = torch.device("cpu")
+    cls_cpu = copy.deepcopy(cls).to(cpu)
+    slots_cpu = {k: copy.deepcopy(w).to(cpu) for k, w in slots.items()}
+    with torch.no_grad():
+        probs_card = cls(wet[:1]).cpu()
+        probs_cpu = cls_cpu(wet[:1].cpu())
+    probs_err = (probs_card - probs_cpu).abs().max().item()
+    check(probs_err <= CPU_TOL, f"probs card vs CPU {probs_err} <= {CPU_TOL}")
+
+    demucs_card = slots[SLOT].sample(wet[:1]).cpu()
+    demucs_cpu = slots_cpu[SLOT].sample(wet[:1].cpu())
+    demucs_64 = copy.deepcopy(slots_cpu[SLOT]).double().sample(wet[:1].cpu().double())
+    demucs_rel = max_rel(demucs_cpu, demucs_card)
+    check(demucs_rel <= CPU_TOL, f"HDemucs card vs CPU {demucs_rel} <= {CPU_TOL}")
+
+    x0, d0 = wet[:1, :, :CPU_T], dry[:1, :, :CPU_T]
+    ones = torch.ones(1, len(ALL_EFFECTS))
+    y_card, _ = ChainInference(slots, SR).remove(x0, ones.to(x0.device))
+    y_cpu, _ = ChainInference(slots_cpu, SR).remove(x0.cpu(), ones)
+    chain_rel = max_rel(y_cpu, y_card)
+    check(chain_rel <= CPU_TOL, f"five-slot chain card vs CPU {chain_rel} <= {CPU_TOL}")
+    m_card = ChainInference(slots, SR).test_step((x0, d0, 0, ones.to(x0.device)))
+    m_cpu = ChainInference(slots_cpu, SR).test_step((x0.cpu(), d0.cpu(), 0, ones))
+    metric_errs = {}
+    for k in m_card:
+        a, b = m_card[k].item(), m_cpu[k].item()
+        metric_errs[k] = abs(a - b) / max(abs(b), 1.0)
+        check(metric_errs[k] <= CPU_TOL, f"test_step {k} card {a} vs CPU {b}")
+    return {"probs_max_abs_err": probs_err,
+            "demucs_max_rel_err": demucs_rel,
+            "demucs_card_vs_fp64": max_rel(demucs_card, demucs_64),
+            "demucs_cpu_vs_fp64": max_rel(demucs_cpu, demucs_64),
+            "chain_samples": CPU_T, "chain_length_out": y_cpu.shape[-1],
+            "chain_max_rel_err": chain_rel,
+            "test_step_rel_err": metric_errs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -257,62 +410,53 @@ def main(argv=None) -> int:
             peak_in=clips.abs().max().item(), peak_out=wet.abs().max().item())
 
     torch.manual_seed(args.seed)
-    cls = make_cnn14(num_classes=len(ALL_EFFECTS), sample_rate=SR, device=dev,
-                     **CNN14)
-    # residual wrapper with torch-default (nonzero) init: identity_init's
-    # zeroed final convs would make the stage a no-op
-    demucs = ModelWrapper(make_demucs(sample_rate=SR, device=dev, **DEMUCS).module,
-                          name="demucs", residual=True)
-    chain = ChainInference({SLOT: demucs}, SR, classifier=cls)
+    cls, slots = build_slots(dev)
+    chain = ChainInference(slots, SR, classifier=cls)
+    ph.done("build_slots", slots={k: type(w.module).__name__
+                                  for k, w in slots.items()},
+            parameters={k: sum(p.numel() for p in w.parameters())
+                        for k, w in slots.items()})
     labels = chain.detect(wet)
     torch.cuda.synchronize()
     check(labels.shape == (B, len(ALL_EFFECTS)), "labels (8, 5)")
-    ph.done("detect", labels_per_effect=dict(zip(
-        ALL_EFFECTS, labels.sum(dim=0).int().tolist())))
+    ph.done("detect", labels_per_effect=per_effect(labels))
 
-    comp = ALL_EFFECTS.index("compressor")
-    oracle = torch.zeros_like(labels)
-    oracle[:, comp] = 1.0
+    oracle = torch.ones_like(labels)
+    mixed = bits_pattern(B, dev)
     y_det, _ = chain.remove(wet, labels)
     y_oracle, _ = chain.remove(wet, oracle)
-    chain_all = ChainInference({SLOT: demucs}, SR, classifier=cls,
+    y_mixed, _ = chain.remove(wet, mixed)
+    chain_all = ChainInference(slots, SR, classifier=cls,
                                use_all_effect_models=True)
     y_all, labels_all = chain_all.run(wet)
     torch.cuda.synchronize()
-    for name, y in (("detected", y_det), ("oracle", y_oracle), ("all", y_all)):
-        check(y.shape == (B, 1, T), f"{name} output (8, 1, 262144)")
+    for name, y in (("detected", y_det), ("oracle", y_oracle),
+                    ("mixed", y_mixed), ("all", y_all)):
+        check(y.shape == (B, 1, T_OUT), f"{name} output (8, 1, {T_OUT})")
         check(bool(torch.isfinite(y).all()), f"{name} output finite")
     check(bool(torch.all(labels_all == 1)), "all: every label on")
     check(torch.equal(y_all, y_oracle), "all equals oracle bit for bit")
+    ph.done("remove", all_equals_oracle=True, length=y_oracle.shape[-1],
+            detected_per_effect=per_effect(labels),
+            mixed_per_effect=per_effect(mixed),
+            rms_in=rms(wet), rms_oracle=rms(y_oracle), rms_mixed=rms(y_mixed),
+            rms_detected=rms(y_det))
+
+    disp = dispatch_phase(slots, wet, clips, y_oracle)
+    ph.done("dispatch", **disp)
+
+    dry = clips[:, None, :]
+    chain_oracle = ChainInference(slots, SR)
+    metrics = chain_oracle.test_step((wet, dry, 0, oracle))
+    torch.cuda.synchronize()
+    metrics = {k: v.item() for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in metrics.values()), "test_step finite")
+    ph.done("test_step", **metrics,
+            peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
     launches = {"envelope": envelope.launches}
-    ph.done("remove", all_equals_oracle=True,
-            rms_in=wet.pow(2).mean().sqrt().item(),
-            rms_oracle=y_oracle.pow(2).mean().sqrt().item(),
-            max_abs_change_oracle=(y_oracle - wet).abs().max().item())
     # ---- end of the main path ----
 
-    cpu = torch.device("cpu")
-    cls_cpu = copy.deepcopy(cls).to(cpu)
-    demucs_cpu = copy.deepcopy(demucs).to(cpu)
-    chain_cpu = ChainInference({SLOT: demucs_cpu}, SR, classifier=cls_cpu)
-    with torch.no_grad():
-        probs_card = cls(wet[:1]).cpu()
-        probs_cpu = cls_cpu(wet[:1].cpu())
-    y_cpu, _ = chain_cpu.remove(wet[:1].cpu(), oracle[:1].cpu())
-    # an fp64 run of the same removal says which side carries the error
-    y_64 = copy.deepcopy(demucs_cpu).double().sample(wet[:1].cpu().double())
-    probs_err = (probs_card - probs_cpu).abs().max().item()
-    card = y_oracle[:1].cpu()
-
-    def rel(a, b):
-        return ((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
-
-    remove_rel = rel(y_cpu, card)
-    check(probs_err <= CPU_TOL, f"probs card vs CPU {probs_err} <= {CPU_TOL}")
-    check(remove_rel <= CPU_TOL, f"removal card vs CPU {remove_rel} <= {CPU_TOL}")
-    ph.done("cpu_vs_card", probs_max_abs_err=probs_err,
-            remove_max_rel_err=remove_rel, card_vs_fp64=rel(card, y_64),
-            cpu_vs_fp64=rel(y_cpu, y_64))
+    ph.done("cpu_vs_card", **cpu_vs_card(cls, slots, wet, dry))
 
     row["launches"] = launches["envelope"]
     print(json.dumps({"kernels": [row]}), flush=True)

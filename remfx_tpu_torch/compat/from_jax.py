@@ -9,6 +9,11 @@ loaded with ``load_state_dict(strict=True)``.
   ``remfx_tpu/compat/torch_import.py:convert_cnn14``.
 * ``demucs_state_dict`` is a copy of ``torch_import.py:export_demucs``
   (torchaudio naming), ending in torch tensors.
+* ``tcn_state_dict`` is the inverse of ``torch_import.py:convert_tcn``
+  (the reference's ``process_blocks.{n}`` names).
+* ``dcunet_state_dict`` is a copy of ``torch_import.py:export_dcunet``
+  (asteroid naming, ``masker.mask_bias`` included), ending in torch
+  tensors, for both the ``bN`` and ``CbN`` norms.
 
 Layouts: flax conv ``(kh, kw, in, out)`` / ``(k, in, out)`` -> torch
 ``(out, in, kh, kw)`` / ``(out, in, k)``; Dense ``(in, out)`` -> Linear
@@ -179,3 +184,81 @@ def demucs_state_dict(variables: dict) -> dict:
                         f"{tname}.dconv.layers")
     leaves.check_all_used()
     return _tensors(sd)
+
+
+def tcn_state_dict(variables: dict) -> dict:
+    """TCN ``{'params'}`` -> port ``TCN`` state dict (the module, not its
+    wrapper)."""
+    leaves = _Leaves(variables)
+    sd: dict = {}
+    blocks = sorted(int(k[5:]) for k in leaves.subtree("params")
+                    if k.startswith("block"))
+    for n in blocks:
+        get = lambda *p: leaves.get("params", f"block{n}", *p)  # noqa: E731
+        sd[f"process_blocks.{n}.conv1.weight"] = _conv_w(get("conv1", "kernel"))
+        sd[f"process_blocks.{n}.conv1.bias"] = get("conv1", "bias")
+        sd[f"process_blocks.{n}.relu.weight"] = get("relu", "weight")
+        sd[f"process_blocks.{n}.res.weight"] = _conv_w(get("res", "kernel"))
+    sd["output.weight"] = _conv_w(leaves.get("params", "output", "kernel"))
+    sd["output.bias"] = leaves.get("params", "output", "bias")
+    leaves.check_all_used()
+    return _tensors(sd)
+
+
+def _dcunet_conv(sd: dict, leaves: _Leaves, lname: str, tname: str,
+                 transpose: bool):
+    tree = leaves.subtree("params", lname)
+    for part in ("re", "im"):
+        k = leaves.get("params", lname, f"{part}_kernel")  # (kh, kw, in, out)
+        # ConvTranspose2d (in, out, kh, kw) in tap order; Conv2d (out, in, kh, kw)
+        sd[f"{tname}.{part}_module.weight"] = (
+            k.transpose(2, 3, 0, 1) if transpose else k.transpose(3, 2, 0, 1))
+        if f"{part}_bias" in tree:
+            sd[f"{tname}.{part}_module.bias"] = leaves.get(
+                "params", lname, f"{part}_bias")
+
+
+def dcunet_state_dict(variables: dict) -> dict:
+    """DCUNet ``{'params', 'batch_stats'}`` -> port ``DCUNet`` state dict
+    (asteroid names; the module, not its wrapper). Each BatchNorm gains
+    the ``num_batches_tracked`` buffer that PyTorch keeps for training."""
+    leaves = _Leaves(variables)
+    sd: dict = {}
+    counters = []
+    for lname, tree in leaves.subtree("params").items():
+        if lname == "mask_bias":
+            sd["masker.mask_bias"] = leaves.get("params", lname)
+            continue
+        if lname == "output_conv":
+            _dcunet_conv(sd, leaves, lname, "masker.output_layer", True)
+            continue
+        kind, idx = lname[:3], lname[3:].split("_")[0]
+        if kind not in ("enc", "dec"):
+            continue  # reported by check_all_used
+        base = "masker.encoders" if kind == "enc" else "masker.decoders"
+        if lname.endswith("_conv"):
+            attr = "conv" if kind == "enc" else "deconv"
+            _dcunet_conv(sd, leaves, lname, f"{base}.{idx}.{attr}", kind == "dec")
+        elif lname.endswith("_norm"):
+            norm = f"{base}.{idx}.norm"
+            if "weight" in tree:  # CbN
+                sd[f"{norm}.weight"] = leaves.get("params", lname, "weight")
+                sd[f"{norm}.bias"] = leaves.get("params", lname, "bias")
+                for stat in ("running_mean", "running_covar"):
+                    sd[f"{norm}.{stat}"] = leaves.get("batch_stats", lname, stat)
+                counters.append(norm)
+            else:
+                for part in ("re", "im"):
+                    sub = f"{norm}.{part}_module"
+                    p = ("params", lname, f"{part}_module")
+                    s = ("batch_stats", lname, f"{part}_module")
+                    sd[f"{sub}.weight"] = leaves.get(*p, "scale")
+                    sd[f"{sub}.bias"] = leaves.get(*p, "bias")
+                    sd[f"{sub}.running_mean"] = leaves.get(*s, "mean")
+                    sd[f"{sub}.running_var"] = leaves.get(*s, "var")
+                    counters.append(sub)
+    leaves.check_all_used()
+    out = _tensors(sd)
+    for name in counters:
+        out[f"{name}.num_batches_tracked"] = torch.tensor(0)
+    return out

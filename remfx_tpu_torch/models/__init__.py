@@ -3,14 +3,55 @@
 Each factory builds its model on ``device`` (the card unless the caller
 names another) in eval mode, with PyTorch's default initialisation;
 weights from the JAX package come in through ``compat.from_jax``.
+``make_model`` picks a removal factory by name, as the JAX registry does.
 """
 
 from __future__ import annotations
 
+import inspect
+import logging
+
 from remfx_tpu_torch.models.cnn14 import Cnn14
+from remfx_tpu_torch.models.dcunet import DCUNet
 from remfx_tpu_torch.models.demucs import HDemucs
+from remfx_tpu_torch.models.tcn import TCN
 from remfx_tpu_torch.models.wrappers import ModelWrapper
 from remfx_tpu_torch.utils.device import resolve_device
+
+log = logging.getLogger(__name__)
+
+
+def make_tcn(
+    sample_rate=48000,
+    num_bins=1025,
+    ninputs=1,
+    noutputs=1,
+    nblocks=20,
+    channel_growth=0,
+    channel_width=256,
+    kernel_size=7,
+    stack_size=10,
+    dilation_growth=2,
+    causal=False,
+    remat=True,
+    device=None,
+    **_ignored,
+) -> ModelWrapper:
+    """``remat`` is the JAX package's memory workaround for the backward
+    pass (``remfx_tpu/models/tcn.py:73-76``); inference has nothing to
+    rematerialise, so the key is accepted and unused here."""
+    module = TCN(
+        ninputs=ninputs,
+        noutputs=noutputs,
+        nblocks=nblocks,
+        channel_growth=channel_growth,
+        channel_width=channel_width,
+        kernel_size=kernel_size,
+        stack_size=stack_size,
+        dilation_growth=dilation_growth,
+        causal=causal,
+    )
+    return ModelWrapper(module, name="tcn").to(resolve_device(device)).eval()
 
 
 def make_cnn14(
@@ -32,6 +73,39 @@ def make_cnn14(
         n_mels=n_mels,
     )
     return net.to(resolve_device(device)).eval()
+
+
+def make_umx(**_kwargs):
+    raise NotImplementedError(
+        "UMX is not ported yet (ROADMAP.md §A10); use the JAX package")
+
+
+def make_dcunet(
+    sample_rate=48000,
+    architecture="Large-DCUNet-20",
+    stft_kernel_size=512,
+    fix_length_mode="pad",
+    num_bins=1025,
+    norm_type="bN",
+    gauss_conv=False,
+    identity_init=False,
+    device=None,
+    **_ignored,
+) -> ModelWrapper:
+    module = DCUNet(
+        architecture=architecture,
+        stft_kernel_size=stft_kernel_size,
+        fix_length_mode=fix_length_mode,
+        norm_type=norm_type,
+        gauss_conv=gauss_conv,
+        identity_init=identity_init,
+    )
+    return ModelWrapper(module, name="dcunet").to(resolve_device(device)).eval()
+
+
+def make_dptnet(**_kwargs):
+    raise NotImplementedError(
+        "DPTNet is not ported yet (ROADMAP.md §A10); use the JAX package")
 
 
 def make_demucs(
@@ -57,3 +131,35 @@ def make_demucs(
     )
     wrapper = ModelWrapper(module, name="demucs", residual=bool(identity_init))
     return wrapper.to(resolve_device(device)).eval()
+
+
+MODEL_REGISTRY = {
+    "tcn": make_tcn,
+    "umx": make_umx,
+    "dcunet": make_dcunet,
+    "dptnet": make_dptnet,
+    "demucs": make_demucs,
+}
+
+
+def make_model(name: str, **kwargs) -> ModelWrapper:
+    if name not in MODEL_REGISTRY:
+        raise ValueError(f"unknown model {name!r}; have {sorted(MODEL_REGISTRY)}")
+    fn = MODEL_REGISTRY[name]
+    # every factory takes **_ignored so that surplus config keys do not
+    # crash; name what is dropped, since a swallowed key can size the
+    # wrong network without a sound
+    named = {
+        p.name
+        for p in inspect.signature(fn).parameters.values()
+        if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)
+    }
+    extra = sorted(set(kwargs) - named)
+    if extra:
+        log.warning("model %r ignores network config keys: %s", name, extra)
+    return fn(**kwargs)
+
+
+__all__ = ["TCN", "Cnn14", "DCUNet", "HDemucs", "ModelWrapper", "make_model",
+           "make_cnn14", "make_dcunet", "make_demucs", "make_tcn",
+           "MODEL_REGISTRY"]

@@ -489,3 +489,6 @@ class HDemucs(nn.Module):
         wave_f = self._ispec(re_o, im_o, T)
         wave_t = xt[..., :T] * stdt + meant
         return wave_f + wave_t
+
+    def output_length(self, length: int) -> int:
+        return length

@@ -1,16 +1,20 @@
-"""Removal-model wrapper: the ``sample`` contract and the residual skip.
+"""Removal-model wrapper: the loss and ``sample`` contract.
 
-Counterpart of ``remfx_tpu/models/wrappers.py:ModelWrapper``. With
-``residual``, the wrapper adds the input back (``x[..., :T_out]``), the
-identity-start mode of ``make_demucs(identity_init=True)``. The JAX
-wrapper's ``forward((x, target)) -> loss`` (MR-STFT + 100 * L1) waits for
-the losses slice; here ``forward(x)`` is the model's output.
+Counterpart of ``remfx_tpu/models/wrappers.py:ModelWrapper`` (reference
+remfx/models.py:259-390). ``forward(x)`` is the model's output, as
+``nn.Module`` has it; the JAX wrapper's ``forward((x, target))`` is
+``loss_and_output`` here. With ``residual``, the wrapper adds the input
+back (``x[..., :T_out]``), the identity-start mode of
+``make_demucs(identity_init=True)``. The JAX wrapper's
+``takes_train_flag`` is ``train()`` / ``eval()`` here.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from remfx_tpu_torch.losses import removal_loss
 
 
 class ModelWrapper(nn.Module):
@@ -27,7 +31,20 @@ class ModelWrapper(nn.Module):
             out = out + x[..., : out.shape[-1]]
         return out
 
+    def loss_and_output(self, batch):
+        """``(x, target) -> (loss, output)``: the JAX wrapper's ``forward``
+        (``remfx_tpu/models/wrappers.py:65-83``), with the loss of
+        ``losses.removal_loss``."""
+        x, target = batch
+        output = self(x)
+        return removal_loss(output, target), output
+
     @torch.no_grad()
     def sample(self, x: torch.Tensor) -> torch.Tensor:
         """Inference: (B, C, T) -> (B, C, T') removed audio."""
         return self(x)
+
+    def output_length(self, length: int) -> int:
+        """T' that ``sample`` gives for ``length`` samples in, without
+        running the model (the JAX package asks ``jax.eval_shape``)."""
+        return self.module.output_length(length)

@@ -7,6 +7,12 @@ takes ``x[..., L-1-length : L-1]``.
 """
 
 
+def center_crop(x, length: int):
+    """Crop the trailing axis to ``length`` samples, centered."""
+    start = (x.shape[-1] - length) // 2
+    return x[..., start : start + length]
+
+
 def causal_crop(x, length: int):
     """Crop the trailing axis to the last ``length`` samples excluding the
     very last sample (reference remfx/utils.py:208-211 — part of the spec)."""

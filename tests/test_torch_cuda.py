@@ -193,3 +193,53 @@ def test_chain_of_cpu_built_models_runs_without_tf32(cuda):
         probs = cls(x.to(cuda)).cpu()
     assert (probs - probs_cpu).abs().max().item() <= CPU_TOL
     assert ((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item() <= CPU_TOL
+
+
+# ---- the signal paths of the five-slot chain, card against CPU ----
+
+def test_asteroid_istft_on_the_card_matches_the_cpu(cuda):
+    """DCUNet's decoder (a transposed filterbank conv, no FFT) on a random,
+    non-Hermitian-looking spectrum, past its overlap-add length (1e-5 of
+    the peak: fp32, another summation order)."""
+    from remfx_tpu_torch.models.dcunet import asteroid_istft
+    g = torch.Generator().manual_seed(1)
+    re = torch.randn(2, 257, 40, generator=g)
+    im = torch.randn(2, 257, 40, generator=g)
+    want = asteroid_istft(re, im, 512, 10500)
+    got = asteroid_istft(re.to(cuda), im.to(cuda), 512, 10500).cpu()
+    assert not got[:, 10496:].any()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+def _card_vs_cpu(model, x, cuda):
+    want = model.sample(x)
+    got = model.to(cuda).sample(x.to(cuda)).cpu()
+    assert got.shape == want.shape
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def test_mini_dcunet_on_the_card_matches_the_cpu(cuda):
+    from remfx_tpu_torch.models import make_dcunet
+    torch.manual_seed(0)
+    model = make_dcunet(device="cpu", architecture="Mini-DCUNet-6",
+                        stft_kernel_size=64, identity_init=True)
+    x = 0.3 * torch.randn(2, 1, 4000, generator=torch.Generator().manual_seed(2))
+    assert _card_vs_cpu(model, x, cuda) <= CPU_TOL
+
+
+def test_small_tcn_on_the_card_matches_the_cpu(cuda):
+    from remfx_tpu_torch.models import make_tcn
+    torch.manual_seed(0)
+    model = make_tcn(device="cpu", nblocks=4, channel_width=8)
+    x = 0.3 * torch.randn(2, 1, 4096, generator=torch.Generator().manual_seed(3))
+    assert _card_vs_cpu(model, x, cuda) <= CPU_TOL
+
+
+def test_multi_resolution_stft_loss_on_the_card_matches_the_cpu(cuda):
+    from remfx_tpu_torch.losses import multi_resolution_stft_loss
+    g = torch.Generator().manual_seed(4)
+    y = 0.3 * torch.randn(2, 1, 16384, generator=g)
+    x = 0.8 * y + 0.1 * torch.randn(2, 1, 16384, generator=g)
+    want = multi_resolution_stft_loss(x, y).item()
+    got = multi_resolution_stft_loss(x.to(cuda), y.to(cuda)).item()
+    assert abs(got - want) <= 1e-5 * abs(want)
