@@ -14,7 +14,13 @@ config of the repo's trained checkpoint of that slot.
 Phases, each printing one JSON line with its elapsed seconds as it ends:
 device, build (nvcc for sm_90a of every csrc/*.cu), kernels (each kernel
 against its plain PyTorch version at the main path's shape, timed),
-render, build_slots, detect, remove (detected labels; oracle with all five
+render, synth (the data-synthesis path: EffectChainRenderer.render_batch
+of the dataset's chain at the repo's default configuration on the 8 clips;
+its labels, -20 LUFS on every output row, the same output again from the
+same seed, card against CPU on 65536 samples, the C++ oracle's golden
+outputs on the card, its wall time as audio seconds per second, each
+effect's batched render time, and the envelope kernel's launches per
+render_batch and per limiter call), build_slots, detect, remove (detected labels; oracle with all five
 labels on, which use_all_effect_models must equal bit for bit; a mixed
 pattern that switches every slot on in some rows and off in others),
 dispatch (regroup and staged against single on 16 rows with an empty, a
@@ -30,7 +36,9 @@ one (a loud hit then digital zeros at 250 ms release, an all-zero row, a
 row with cte_at = 0, and the corners of the attack and release ranges),
 and reports both kernels' times, how many chunks the split kernel's
 repair pass reran, and how many device kernels one call of it runs (from
-a torch.profiler trace).
+a torch.profiler trace). The kernels line gives the envelope's launches
+on both paths: the render of the detect->remove path and the synthesis
+path (the compressor; redraws and the limiter would add more).
 
 Usage: python3 chip_smoke.py [--seed N]
 Needs one CUDA device: with none it exits non-zero and prints no result.
@@ -51,14 +59,17 @@ import numpy as np
 import torch
 
 from remfx_tpu_torch import ALL_EFFECTS
+from remfx_tpu_torch.augment import EffectChainRenderer
 from remfx_tpu_torch.chain.inference import ChainInference
+from remfx_tpu_torch.config.core import default_config
 from remfx_tpu_torch.data.wav import read_wav
-from remfx_tpu_torch.fx import compressor
+from remfx_tpu_torch.fx import compressor, make_effect
 from remfx_tpu_torch.models import make_cnn14, make_dcunet, make_demucs, make_tcn
 from remfx_tpu_torch.models.wrappers import ModelWrapper
 from remfx_tpu_torch.ops import _build
 from remfx_tpu_torch.ops.envelope import (envelope, envelope_flags,
                                           envelope_plain, envelope_serial)
+from remfx_tpu_torch.ops.loudness import integrated_loudness, loudness_normalize
 from remfx_tpu_torch.utils.regroup import bucket_size
 
 ROOT = Path(__file__).resolve().parent
@@ -89,6 +100,16 @@ SLOT = "RandomPedalboardCompressor"
 DISPATCH_COUNTS = {"distortion": 0, "compressor": 5, "reverb": 14,
                    "chorus": 8, "delay": 12}
 CPU_T = 65536  # samples of clip 0 in the CPU run of the five-slot chain
+# synth: the LUFS target of every output row, card against CPU on the
+# first SYNTH_CPU_T samples of the clips, and the golden outputs of the C++
+# oracle (tests/fixtures/golden_dsp.npz) at tests/test_golden_fixtures.py's
+# absolute tolerances
+LUFS_TOL = 0.01
+SYNTH_CPU_T = 65536
+SYNTH_CPU_TOL = 1e-4  # x peak: the FFT effects' tolerance against JAX
+GOLDEN = ROOT / "tests" / "fixtures" / "golden_dsp.npz"
+GOLDEN_TOL = {"distortion": 2e-6, "delay": 2e-4, "compressor": 1e-4,
+              "limiter": 1e-4, "chorus": 2e-4, "reverb": 5e-4}
 ENV_TOL = 2e-4  # x row peak: fp32 rounding through the 1/(1-cte) pole
 CPU_TOL = 1e-3  # card vs CPU, TF32 off on both
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -235,6 +256,174 @@ def kernels_phase(clips: torch.Tensor, gen: torch.Generator) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
     }
+
+
+def synth_renderer(dev) -> EffectChainRenderer:
+    """The dataset's chain at the repo's default configuration
+    (config/core.py): keep 2 of {reverb, chorus, delay}, shuffled; remove
+    {compressor, distortion}, not shuffled; all.yaml's ranges; -20 LUFS
+    after every effect and at the end; the MR-STFT redraw check."""
+    cfg = default_config()
+    return EffectChainRenderer(
+        cfg["sample_rate"], cfg["effects_to_keep"], cfg["effects_to_remove"],
+        cfg["num_kept_effects"], cfg["num_removed_effects"],
+        cfg["shuffle_kept_effects"], cfg["shuffle_removed_effects"],
+        effect_overrides=cfg["effects"], device=dev)
+
+
+def wall_ms(fn, rounds: int = 3) -> float:
+    """Median wall ms of ``rounds`` calls of ``fn``, each ended by a
+    synchronise, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def trace_device(fn, top: int = 6) -> dict:
+    """One call of ``fn`` under torch.profiler, tracing the card only (a
+    trace of the host ops too takes tens of seconds to read back at tens
+    of thousands of launches): its device kernels, their summed device
+    time against the call's wall time (which the profiler inflates), and
+    the kernels that took the most device time, by name (cut to 80
+    characters) with their launches."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms_ = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return {"device_kernels": sum(e.count for e in kernels),
+            "device_busy_ms": busy_ms, "wall_ms_traced": wall_ms_,
+            "device_busy_share": busy_ms / wall_ms_,
+            "top_kernels": [{"name": e.key[:80], "launches": e.count,
+                             "device_ms": e.self_device_time_total / 1e3}
+                            for e in kernels[:top]]}
+
+
+def golden_cases(golden, effect: str):
+    """(params, oracle output, range overrides) of each fixture case of
+    ``effect``, under the port's parameter names (as
+    tests/test_golden_fixtures.py maps them)."""
+    idxs = sorted({k.split("/")[1] for k in golden.files
+                   if k.startswith(f"{effect}/")})
+    for i in idxs:
+        p = {k.split("/param/")[1]: float(golden[k]) for k in golden.files
+             if k.startswith(f"{effect}/{i}/param/")}
+        kw = {}
+        if effect == "chorus":
+            p["centre_delay_ms"] = p.pop("centre_ms")
+        elif effect == "reverb":
+            p = {"room_size": p["room_size"], "damping": p["damping"],
+                 "wet_dry": p["wet_level"], "width": p["width"]}
+            kw = {"max_room_size": max(0.5, p["room_size"])}
+        elif effect == "delay":
+            kw = {"max_delay_sconds": 0.3}
+        yield p, golden[f"{effect}/{i}/output"], kw
+
+
+def golden_on_card(dev) -> dict:
+    """Each effect of the oracle's fixtures rendered on the card; the
+    worst absolute error of its cases against its tolerance."""
+    golden = np.load(GOLDEN)
+    x = torch.from_numpy(golden["input"][None]).to(dev)
+    worst = {}
+    for effect, tol in GOLDEN_TOL.items():
+        errs = []
+        for p, ref, kw in golden_cases(golden, effect):
+            eff = make_effect(effect, SR, device=dev, **kw)
+            y = eff.render(x, {k: torch.tensor(v, dtype=torch.float32, device=dev)
+                               for k, v in p.items()})
+            errs.append(float(np.abs(y[0].cpu().numpy() - ref).max()))
+        worst[effect] = {"max_abs_err": max(errs), "tol": tol, "cases": len(errs)}
+        check(max(errs) < tol, f"golden {effect}: {max(errs)} < {tol}")
+    return worst
+
+
+def synth_phase(clips: torch.Tensor, seed: int) -> dict:
+    """The data-synthesis path: render_batch of the dataset's chain on the
+    8 demo clips at full width, with its checks, card against CPU, the
+    oracle's golden outputs, and its times."""
+    dev = clips.device
+    cfg = default_config()
+    x = clips[:, None, :]
+    r = synth_renderer(dev)
+    # ---- the synthesis path: counts at 0 just before, read just after ----
+    envelope.launches = 0
+    out = r.render_batch(torch.Generator().manual_seed(seed), x)
+    torch.cuda.synchronize()
+    launches = envelope.launches
+    # ---- end of the synthesis path ----
+    dry, wet, dry_labels, wet_labels = out
+    check(launches >= 1, "the synthesis path launched the envelope kernel")
+    for name, y in (("dry", dry), ("wet", wet)):
+        check(y.shape == (B, 1, T), f"synth {name} (8, 1, 262144)")
+        check(bool(torch.isfinite(y).all()), f"synth {name} finite")
+    keep = [ALL_EFFECTS.index(n) for n in cfg["effects_to_keep"]]
+    remove = torch.zeros(len(ALL_EFFECTS), device=dev)
+    remove[[ALL_EFFECTS.index(n) for n in cfg["effects_to_remove"]]] = 1.0
+    check(bool((dry_labels.sum(1) == 2).all() and (dry_labels[:, keep].sum(1) == 2).all()),
+          "every dry row has exactly two of reverb / chorus / delay")
+    check(bool((wet_labels == remove).all()), "every wet row is {compressor, distortion}")
+    lufs = torch.cat([integrated_loudness(dry, SR), integrated_loudness(wet, SR)])
+    lufs_err = (lufs + 20.0).abs().max().item()
+    check(lufs_err <= LUFS_TOL, f"LUFS of every output row -20 within {LUFS_TOL}: {lufs_err}")
+
+    again = r.render_batch(torch.Generator().manual_seed(seed), x)
+    check(all(torch.equal(a, b) for a, b in zip(out[2:], again[2:])),
+          "the same seed gives the same labels")
+    rerun_err = max(max_rel(again[0], dry), max_rel(again[1], wet))
+    check(rerun_err <= 1e-6, f"the same seed gives the same output: {rerun_err}")
+    bit_equal = all(torch.equal(a, b) for a, b in zip(out, again))
+
+    xs = x[..., :SYNTH_CPU_T]
+    card = r.render_batch(torch.Generator().manual_seed(seed), xs)
+    cpu = synth_renderer("cpu").render_batch(torch.Generator().manual_seed(seed), xs.cpu())
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(card[2:], cpu[2:])),
+          "card and CPU draw the same labels")
+    cpu_err = max(max_rel(card[0], cpu[0]), max_rel(card[1], cpu[1]))
+    check(cpu_err <= SYNTH_CPU_TOL, f"synth card vs CPU {cpu_err} <= {SYNTH_CPU_TOL}")
+
+    golden = golden_on_card(dev)
+
+    render_ms = wall_ms(lambda: r.render_batch(torch.Generator().manual_seed(seed), x))
+    trace = trace_device(lambda: r.render_batch(torch.Generator().manual_seed(seed), x))
+    gen = torch.Generator().manual_seed(seed)
+    effect_ms = {}
+    for name in ("reverb", "chorus", "delay", "compressor", "distortion", "limiter",
+                 "parametric_eq", "volume_automation", "stereo_widener"):
+        eff = make_effect(name, SR, device=dev, **cfg["effects"].get(name, {}))
+        xin = torch.cat([x, x.roll(T // 2, -1)], 1) if name == "stereo_widener" else x
+        params = eff.sample_params(gen, B)
+        effect_ms[name] = wall_ms(lambda: eff.render_batch(xin, params))
+    effect_ms["loudness_normalize"] = wall_ms(lambda: loudness_normalize(x, SR, -20.0))
+    effect_ms["mrstft_check"] = wall_ms(lambda: r.stft_distance(wet, dry))
+
+    limiter = make_effect("limiter", SR, device=dev)
+    params = limiter.sample_params(gen, B)
+    envelope.launches = 0
+    limiter.render_batch(x, params)
+    torch.cuda.synchronize()
+    limiter_launches = envelope.launches
+    check(limiter_launches == 2, "the limiter launched the envelope kernel twice")
+    return {"envelope_launches": launches, "limiter_envelope_launches": limiter_launches,
+            "dry_per_effect": per_effect(dry_labels), "wet_per_effect": per_effect(wet_labels),
+            "lufs_max_err": lufs_err, "mrstft_min": float(r.stft_distance(wet, dry).min()),
+            "rerun_bit_equal": bit_equal, "rerun_max_rel_err": rerun_err,
+            "cpu_samples": SYNTH_CPU_T, "cpu_max_rel_err": cpu_err, "golden": golden,
+            "render_batch_ms": render_ms, "render_batch_trace": trace,
+            "audio_s_per_call": B * T / SR,
+            "audio_s_per_s": B * T / SR / (render_ms / 1e3), "effect_ms": effect_ms}
 
 
 def build_slots(dev):
@@ -403,11 +592,16 @@ def main(argv=None) -> int:
     params = compressor.sample_params(gen, B, COMP_RANGES, device=dev)
     wet = compressor.render_batch(clips[:, None, :], params, SR)
     torch.cuda.synchronize()
-    check(envelope.launches >= 1, "render launched the envelope kernel")
+    main_launches = envelope.launches  # the main path's only envelope call
+    check(main_launches >= 1, "render launched the envelope kernel")
     check(wet.shape == (B, 1, T) and bool(torch.isfinite(wet).all()),
           "rendered batch finite, (8, 1, 262144)")
-    ph.done("render", envelope_launches=envelope.launches,
+    ph.done("render", envelope_launches=main_launches,
             peak_in=clips.abs().max().item(), peak_out=wet.abs().max().item())
+
+    synth = synth_phase(clips, args.seed)  # counts its own path's launches
+    ph.done("synth", **synth)
+    envelope.launches = 0  # the rest of the main path
 
     torch.manual_seed(args.seed)
     cls, slots = build_slots(dev)
@@ -453,12 +647,14 @@ def main(argv=None) -> int:
     check(all(np.isfinite(v) for v in metrics.values()), "test_step finite")
     ph.done("test_step", **metrics,
             peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
-    launches = {"envelope": envelope.launches}
+    launches = {"envelope": main_launches + envelope.launches}
     # ---- end of the main path ----
 
     ph.done("cpu_vs_card", **cpu_vs_card(cls, slots, wet, dry))
 
-    row["launches"] = launches["envelope"]
+    row["launches_by_path"] = {"render_detect_remove": launches["envelope"],
+                               "synth": synth["envelope_launches"]}
+    row["launches"] = launches["envelope"] + synth["envelope_launches"]
     print(json.dumps({"kernels": [row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 
 A second package beside the JAX one, held against it module by module
 (``tests/test_torch_*.py``). It mirrors ``remfx_tpu``'s layout (``ops/``,
-``fx/``, ``models/``, ``chain/``, ``data/``, ``utils/``) so that each
-module's counterpart is easy to find. It imports ``torch`` and never
+``fx/``, ``augment/``, ``models/``, ``chain/``, ``config/``, ``data/``,
+``utils/``) so that each module's counterpart is easy to find. It imports ``torch`` and never
 ``jax`` or ``remfx_tpu``; what it needs of the JAX package is copied.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``

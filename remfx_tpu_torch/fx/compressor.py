@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from remfx_tpu_torch.fx.base import uniform
+from remfx_tpu_torch.fx.base import RandomEffect, uniform
 from remfx_tpu_torch.ops.envelope import envelope
 
 DEFAULT_RANGES = {
@@ -91,3 +91,10 @@ def render_batch(xb: torch.Tensor, params: dict, sample_rate) -> torch.Tensor:
     gain = compressor_gain(env, p["threshold_db"][:, None, None],
                            p["ratio"][:, None, None])
     return (gain * xb).to(xb.dtype)
+
+
+def make(sample_rate, device=None, **overrides) -> RandomEffect:
+    """The randomised compressor; its renderer is ``render_batch``."""
+    ranges = {**DEFAULT_RANGES, **overrides}
+    return RandomEffect("compressor", sample_rate, sample_params, render_batch,
+                        ranges, device)

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from remfx_tpu_torch.ops.fft import real_edge_bins
+
 
 def hann_window(win_length: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """Periodic Hann window, computed in float64 and rounded once (as the
@@ -47,16 +49,9 @@ def istft_ri(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
     of the right-hand ``center`` padding.)
 
     The imaginary parts of the DC and Nyquist bins are ignored, as the JAX
-    package's inverse DFT ignores them (their sine rows are zero). They
-    are zeroed before the inverse FFT: a real inverse FFT of a spectrum
-    that is not Hermitian there is not defined, and cuFFT and the CPU's
-    FFT then disagree."""
+    package's inverse DFT ignores them (``ops.fft.real_edge_bins``)."""
     batch = re.shape[:-2]
-    keep = torch.ones(im.shape[-2], 1, dtype=im.dtype, device=im.device)
-    keep[0] = 0.0
-    if n_fft % 2 == 0:
-        keep[-1] = 0.0
-    z = torch.complex(re, im * keep).reshape(-1, *re.shape[-2:])
+    z = torch.complex(re, real_edge_bins(im, n_fft, dim=-2)).reshape(-1, *re.shape[-2:])
     y = torch.istft(
         z, n_fft, hop_length, win_length=window.shape[0], window=window,
         center=center,

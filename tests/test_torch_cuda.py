@@ -243,3 +243,113 @@ def test_multi_resolution_stft_loss_on_the_card_matches_the_cpu(cuda):
     want = multi_resolution_stft_loss(x, y).item()
     got = multi_resolution_stft_loss(x.to(cuda), y.to(cuda)).item()
     assert abs(got - want) <= 1e-5 * abs(want)
+
+
+# ---- the data-synthesis path, card against CPU ----
+
+GOLDEN = Path(__file__).resolve().parent / "fixtures" / "golden_dsp.npz"
+SYNTH_EFFECTS = ["distortion", "compressor", "limiter", "delay", "reverb", "chorus",
+                 "parametric_eq", "volume_automation", "stereo_widener"]
+
+
+def _clips(rows, C, T, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, C, T, generator=g) * torch.linspace(0.2, 1.0, T)
+    return 0.5 * x / x.abs().max()
+
+
+@pytest.mark.parametrize("name", SYNTH_EFFECTS)
+def test_effect_on_the_card_matches_the_cpu(cuda, name):
+    """Each effect's batched render, card against CPU, 1e-4 of the peak:
+    the tolerance of the FFT effects against JAX (cuFFT and pocketfft sum
+    in other orders; the dynamics run the kernel against the plain loop,
+    2e-4 of the row peak on the envelope itself)."""
+    from remfx_tpu_torch.fx import make_effect
+    from remfx_tpu_torch.ops.envelope import envelope as env
+    C = 2 if name == "stereo_widener" else 1
+    x = _clips(3, C, 48000)
+    cpu = make_effect(name, SR, device="cpu")
+    card = make_effect(name, SR, device=cuda)
+    params = cpu.sample_params(torch.Generator().manual_seed(1), 3)
+    want = cpu.render_batch(x, params)
+    before = env.launches
+    got = card.render_batch(x.to(cuda), {k: v.to(cuda) for k, v in params.items()})
+    torch.cuda.synchronize()
+    launches = {"compressor": 1, "limiter": 2}.get(name, 0)
+    assert env.launches == before + launches
+    assert ((got.cpu() - want).abs().max() / want.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("effect,tol", [("distortion", 2e-6), ("delay", 2e-4),
+                                        ("compressor", 1e-4), ("limiter", 1e-4),
+                                        ("chorus", 2e-4), ("reverb", 5e-4)])
+def test_effect_on_the_card_matches_the_golden_fixtures(cuda, effect, tol):
+    """The C++ oracle's outputs, at tests/test_golden_fixtures.py's
+    absolute tolerances."""
+    from remfx_tpu_torch.fx import make_effect
+    golden = np.load(GOLDEN)
+    x = torch.from_numpy(golden["input"][None]).to(cuda)
+    idxs = sorted({k.split("/")[1] for k in golden.files if k.startswith(f"{effect}/")})
+    for i in idxs:
+        p = {k.split("/param/")[1]: float(golden[k]) for k in golden.files
+             if k.startswith(f"{effect}/{i}/param/")}
+        kw = {}
+        if effect == "chorus":
+            p["centre_delay_ms"] = p.pop("centre_ms")
+        elif effect == "reverb":
+            p = {"room_size": p["room_size"], "damping": p["damping"],
+                 "wet_dry": p["wet_level"], "width": p["width"]}
+            kw = {"max_room_size": max(0.5, p["room_size"])}
+        elif effect == "delay":
+            kw = {"max_delay_sconds": 0.3}
+        eff = make_effect(effect, SR, device=cuda, **kw)
+        y = eff.render(x, {k: torch.tensor(v, device=cuda) for k, v in p.items()})
+        ref = golden[f"{effect}/{i}/output"]
+        assert np.abs(y[0].cpu().numpy() - ref).max() < tol, p
+
+
+def test_integrated_loudness_on_the_card_matches_the_cpu(cuda):
+    """float64 filters and sums on both: 1e-5 LU."""
+    from remfx_tpu_torch.ops.loudness import integrated_loudness
+    x = _clips(4, 2, 3 * SR, seed=2)
+    x[3] = 0.0  # silence: -inf on both
+    want = integrated_loudness(x, SR)
+    got = integrated_loudness(x.to(cuda), SR).cpu()
+    assert torch.equal(torch.isinf(got), torch.isinf(want)) and torch.isinf(got[3])
+    assert (got[:3] - want[:3]).abs().max().item() <= 1e-5
+
+
+def test_irfft_on_the_card_matches_the_cpu_for_a_non_hermitian_spectrum(cuda):
+    """Imaginary parts at DC and Nyquist are zeroed before cuFFT, as the
+    JAX package's inverse ignores them (1e-5 of the peak)."""
+    from remfx_tpu_torch.ops.fft import irfft_ri
+    g = torch.Generator().manual_seed(3)
+    n = 2 ** 20
+    re = torch.randn(2, n // 2 + 1, generator=g)
+    im = torch.randn(2, n // 2 + 1, generator=g)
+    want = irfft_ri(re, im, n)
+    got = irfft_ri(re.to(cuda), im.to(cuda), n).cpu()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+def test_render_batch_on_the_card_matches_the_cpu(cuda):
+    """The dataset's chain at its default configuration, one seed: equal
+    labels, outputs within 1e-4 of the peak."""
+    from remfx_tpu_torch.augment import EffectChainRenderer
+    from remfx_tpu_torch.config.core import default_config
+    cfg = default_config()
+
+    def renderer(dev):
+        return EffectChainRenderer(
+            SR, cfg["effects_to_keep"], cfg["effects_to_remove"],
+            cfg["num_kept_effects"], cfg["num_removed_effects"],
+            cfg["shuffle_kept_effects"], cfg["shuffle_removed_effects"],
+            effect_overrides=cfg["effects"], device=dev)
+
+    x = _clips(4, 1, 65536, seed=4)
+    want = renderer("cpu").render_batch(torch.Generator().manual_seed(0), x)
+    got = renderer(cuda).render_batch(torch.Generator().manual_seed(0), x.to(cuda))
+    for g_, w in zip(got[2:], want[2:]):
+        assert torch.equal(g_.cpu(), w)
+    for g_, w in zip(got[:2], want[:2]):
+        assert ((g_.cpu() - w).abs().max() / w.abs().max()).item() <= 1e-4
