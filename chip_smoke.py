@@ -28,7 +28,8 @@ sub-batch and a dense stage; all three bit for bit with every label on),
 test_step (the chain's loss and metrics against the dry clips), and
 cpu_vs_card (clip 0 on the CPU with the same weights: the classifier and
 HDemucs at full width, the five-slot chain and test_step on its first
-65536 samples). Then the kernel summary line, and the result line last.
+65536 samples), train and train_cls (below). Then the kernel summary
+line, and the result line last.
 
 The kernels phase holds the envelope's split kernel (the main path's)
 bit for bit to the serial kernel, on the demo batch and on an adversarial
@@ -40,6 +41,25 @@ a torch.profiler trace). The kernels line gives the envelope's launches
 on both paths: the render of the detect->remove path and the synthesis
 path (the compressor; redraws and the limiter would add more).
 
+Then the training path (the port's counterpart of the JAX package's
+scripts/train.py), through fit / test of remfx_tpu_torch.train:
+
+- train: compression_aug on the dynamic synthetic dataset, HDemucs (nfft
+  4096, channels 48, mono) at 16 x 262144 a step, each batch rendered on
+  the card (every row compressed: one envelope launch a step). fit takes
+  4 steps, validates, saves best and last and tests best; test() from
+  the best checkpoint gives the same metrics; an auto_resume run
+  continues at step 4 for 2 more. Then 3 timed steps on fresh batches
+  (render_ms, step_ms, the envelope's launches a step, peak memory, a
+  torch.profiler count of the envelope's device kernels in one render +
+  step, and a trace of one step's device time by kernel), 4 steps on one
+  fixed batch whose loss must fall, and one
+  train_step at 65536 samples on the card and on the host CPU from the
+  same weights.
+- train_cls: 5-5_full_cls_dynamic (Cnn14 with SpecAugment, 32 x 262144,
+  mixup off), two steps through fit; finite metrics and the envelope's
+  launches.
+
 Usage: python3 chip_smoke.py [--seed N]
 Needs one CUDA device: with none it exits non-zero and prints no result.
 """
@@ -48,10 +68,12 @@ from __future__ import annotations
 
 import argparse
 import copy
+import csv
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -61,7 +83,7 @@ import torch
 from remfx_tpu_torch import ALL_EFFECTS
 from remfx_tpu_torch.augment import EffectChainRenderer
 from remfx_tpu_torch.chain.inference import ChainInference
-from remfx_tpu_torch.config.core import default_config
+from remfx_tpu_torch.config.core import default_config, parse_cli
 from remfx_tpu_torch.data.wav import read_wav
 from remfx_tpu_torch.fx import compressor, make_effect
 from remfx_tpu_torch.models import make_cnn14, make_dcunet, make_demucs, make_tcn
@@ -70,6 +92,9 @@ from remfx_tpu_torch.ops import _build
 from remfx_tpu_torch.ops.envelope import (envelope, envelope_flags,
                                           envelope_plain, envelope_serial)
 from remfx_tpu_torch.ops.loudness import integrated_loudness, loudness_normalize
+from remfx_tpu_torch.train.checkpoint import find_latest_run, read_state, restore_from
+from remfx_tpu_torch.train.loop import build_datamodule, build_task, fit, test
+from remfx_tpu_torch.train.tasks import RemovalTask
 from remfx_tpu_torch.utils.regroup import bucket_size
 
 ROOT = Path(__file__).resolve().parent
@@ -556,6 +581,228 @@ def cpu_vs_card(cls, slots: dict, wet, dry) -> dict:
             "test_step_rel_err": metric_errs}
 
 
+# ---------------------------------------------------------------- training
+
+# the JAX package's `scripts/train.py +exp=compression_aug` on the dynamic
+# synthetic dataset: HDemucs (nfft 4096, channels 48, mono) removing the
+# compressor, with 0-4 of distortion, chorus, delay and reverb kept
+TRAIN_ARGS = ["+exp=compression_aug", "datamodule.dataset_type=dynamic",
+              "datamodule.synthetic=true"]
+TRAIN_B = 16  # the experiment's train_batch_size (the paper's batch)
+TRAIN_STEPS = 4  # fit's steps; the resumed run takes RESUME_STEPS more
+RESUME_STEPS = 2
+TIMED_STEPS = 3  # render + train_step, each timed, on fresh batches
+FIT_STEPS = 4  # train_steps on one fixed batch, whose loss must fall
+TRAIN_CPU_T = 65536  # samples of the card-against-CPU train step
+TRAIN_CPU_TOL = 1e-4  # loss, relative: fp32, TF32 off on the card
+CLS_ARGS = ["+exp=5-5_full_cls_dynamic", "datamodule.synthetic=true"]
+CLS_B = 32  # 5-5_full_cls_dynamic's train_batch_size
+CLS_STEPS = 2
+
+
+def train_cfg(args, seed: int, logs: Path, *extra):
+    return parse_cli(args + [
+        f"seed={seed}", f"logs_dir={logs}", f"render_root={logs / 'data'}",
+        "logger=csv"] + list(extra))
+
+
+def finite_metrics(metrics: dict, what: str):
+    bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+    check(not bad, f"{what} metrics finite: {bad}")
+
+
+def csv_rows(logs: Path) -> list:
+    rows = []
+    for path in sorted(logs.glob("remfx_tpu/version_*/metrics.csv")):
+        with open(path) as f:
+            rows += list(csv.DictReader(f))
+    return rows
+
+
+def envelope_device_kernels(fn, names) -> int:
+    """Device kernels of the envelope (by the kernels phase's names) in a
+    torch.profiler trace of the card (only) over one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key in set(names))
+
+
+def cpu_train_step(task, batch) -> dict:
+    """One train_step of a copy of ``task``'s HDemucs on the host CPU and
+    one on the card, from the same weights and batch: the loss's relative
+    difference and the largest parameter difference after the step."""
+    on_cpu = copy.deepcopy(task.wrapper).cpu()
+    # the card's copy made by .to(), which lays the LSTM's weights out
+    # as cuDNN takes them
+    wrappers = {"cuda": copy.deepcopy(on_cpu).to("cuda"), "cpu": on_cpu}
+    out = {}
+    for dev, w in wrappers.items():
+        t = RemovalTask(w, max_steps=100)
+        state = t.init_state()
+        x, y = (v.to(dev) for v in batch)
+        _, m = t.train_step(state, (x, y))
+        out[dev] = (m["train_loss"].item(), [p.detach().cpu() for p in w.parameters()])
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    param_err = max((a - b).abs().max().item() for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    check(loss_rel <= TRAIN_CPU_TOL, f"train_step loss card vs CPU {loss_rel}")
+    # Adam moves each parameter by about lr (1e-4) a step: a difference
+    # of more than two steps is a wrong update, not rounding
+    check(param_err <= 2.05e-4, f"train_step parameters card vs CPU {param_err}")
+    return {"samples": TRAIN_CPU_T, "rows": batch[0].shape[0], "loss_cpu": out["cpu"][0],
+            "loss_card": out["cuda"][0], "loss_rel_err": loss_rel,
+            "param_max_abs_err": param_err}
+
+
+def train_phase(seed: int, logs: Path, env_names) -> dict:
+    """fit / test / auto_resume of compression_aug at 16 x 262144 on the
+    card, then timed steps, a fixed-batch fit and card against CPU."""
+    cfg = train_cfg(TRAIN_ARGS, seed, logs, f"trainer.max_steps={TRAIN_STEPS}",
+                    f"datamodule.train_chunks={TRAIN_B * TRAIN_STEPS}",
+                    f"datamodule.val_chunks={TRAIN_B}", f"datamodule.test_chunks={TRAIN_B}",
+                    f"datamodule.test_batch_size={TRAIN_B}")
+    check(cfg["datamodule"]["train_batch_size"] == TRAIN_B
+          and cfg["chunk_size"] == T and cfg["model"]["name"] == "demucs",
+          "compression_aug trains HDemucs at 16 x 262144")
+    # ---- the training path: counts at 0 just before, read just after ----
+    envelope.launches = 0
+    state, test_metrics = fit(cfg)
+    torch.cuda.synchronize()
+    fit_launches = envelope.launches
+    # ---- end of the training path ----
+    finite_metrics(test_metrics, "fit test")
+    train_rows = [r for r in csv_rows(logs) if r.get("train_loss")]
+    check(len(train_rows) == TRAIN_STEPS, f"{TRAIN_STEPS} train rows logged")
+    finite_metrics({k: float(v) for r in train_rows for k, v in r.items()
+                    if k.startswith("train_") and v}, "train")
+    run = find_latest_run(str(logs))
+    layout = sorted(p.name for p in run.iterdir())
+    check(layout == ["best", "best_meta.json", "last", "last_meta.json"],
+          f"the checkpoint layout: {layout}")
+    check((run / "best" / "state.pt").is_file() and (run / "last" / "state.pt").is_file(),
+          "best and last hold state.pt")
+    meta = json.loads((run / "last_meta.json").read_text())
+    check(meta["step"] == TRAIN_STEPS, f"last_meta step {meta}")
+
+    best = read_state(str(run / "best"), next(state.model.parameters()).device)["model"]
+    restored = build_task(cfg).init_state()
+    restore_from(str(run / "best"), restored)
+    bit_equal = all(torch.equal(v, best[k]) for k, v in restored.model.state_dict().items())
+    check(bit_equal, "a restore of best equals the saved parameters bit for bit")
+    check(all(torch.equal(v, best[k]) for k, v in state.model.state_dict().items()),
+          "fit tested the best checkpoint's parameters")
+    test_cfg = train_cfg(TRAIN_ARGS, seed, logs, "render_files=false",
+                         f"ckpt_path={run / 'best'}", f"datamodule.val_chunks={TRAIN_B}",
+                         f"datamodule.test_chunks={TRAIN_B}",
+                         f"datamodule.test_batch_size={TRAIN_B}")
+    again = test(test_cfg)
+    test_rel = max(abs(again[k] - v) / max(abs(v), 1e-6) for k, v in test_metrics.items())
+    check(test_rel <= 1e-6, f"test(ckpt_path=best) gives fit's test metrics: {test_rel}")
+
+    resume_cfg = train_cfg(TRAIN_ARGS, seed, logs, "render_files=false",
+                           "trainer.auto_resume=true",
+                           f"trainer.max_steps={TRAIN_STEPS + RESUME_STEPS}",
+                           f"datamodule.train_chunks={TRAIN_B * TRAIN_STEPS}",
+                           f"datamodule.val_chunks={TRAIN_B}",
+                           f"datamodule.test_chunks={TRAIN_B}",
+                           f"datamodule.test_batch_size={TRAIN_B}")
+    resumed, resume_metrics = fit(resume_cfg)
+    finite_metrics(resume_metrics, "resumed test")
+    rmeta = json.loads((find_latest_run(str(logs)) / "last_meta.json").read_text())
+    check(resumed.step == TRAIN_STEPS + RESUME_STEPS and
+          rmeta["step"] == TRAIN_STEPS + RESUME_STEPS,
+          f"auto_resume continued at step {TRAIN_STEPS}: {resumed.step}, {rmeta}")
+
+    # timed steps on fresh batches, as fit takes them
+    task = build_task(cfg)
+    tstate = task.init_state()
+    data = build_datamodule(train_cfg(TRAIN_ARGS, seed, logs, "render_files=false",
+                                      f"datamodule.val_chunks={TRAIN_B}",
+                                      f"datamodule.test_chunks={TRAIN_B}"))
+    ds = data.train_dataset
+    render_ms, step_ms, per_step = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TIMED_STEPS):
+        before = envelope.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = ds.get_batch(np.arange(i * TRAIN_B, (i + 1) * TRAIN_B))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, m = task.train_step(tstate, (batch[0], batch[1]))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        render_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+        per_step.append(envelope.launches - before)
+        finite_metrics({k: v.item() for k, v in m.items()}, "timed step")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(per_step == [1] * TIMED_STEPS, f"one envelope launch per training step: {per_step}")
+    fixed = ds.get_batch(np.arange(TRAIN_B))
+    env_kernels = envelope_device_kernels(
+        lambda: task.train_step(tstate, ds.get_batch(np.arange(TRAIN_B))[:2]), env_names)
+    check(env_kernels == len(env_names),
+          f"a traced render + step runs one envelope call's device kernels: {env_kernels}")
+
+    step_trace = trace_device(lambda: task.train_step(tstate, fixed[:2]))
+
+    fit_task = build_task(cfg)
+    fit_state = fit_task.init_state()
+    losses = []
+    for _ in range(FIT_STEPS):
+        _, m = fit_task.train_step(fit_state, (fixed[0], fixed[1]))
+        losses.append(m["train_loss"].item())
+    check(losses[-1] < losses[0], f"steps on one batch lower the loss: {losses}")
+
+    cpu = cpu_train_step(fit_task, (fixed[0][:1, :, :TRAIN_CPU_T].contiguous(),
+                                    fixed[1][:1, :, :TRAIN_CPU_T].contiguous()))
+    step_med, render_med = statistics.median(step_ms), statistics.median(render_ms)
+    audio_s = TRAIN_B * T / SR
+    return {"fit_envelope_launches": fit_launches, "envelope_launches_per_step": per_step,
+            "traced_step_envelope_kernels": env_kernels,
+            "batch": TRAIN_B, "samples": T, "fit_steps": TRAIN_STEPS,
+            "fit_test_metrics": test_metrics, "test_again_rel_err": test_rel,
+            "resumed_step": resumed.step, "restore_bit_equal": bit_equal,
+            "step_ms": step_ms, "render_ms": render_ms, "step_ms_median": step_med,
+            "render_ms_median": render_med,
+            "render_share": render_med / (render_med + step_med),
+            "audio_s_per_step": audio_s,
+            "train_audio_s_per_s": audio_s / (step_med / 1e3),
+            "train_audio_s_per_s_with_render": audio_s / ((step_med + render_med) / 1e3),
+            "peak_allocated_gib": peak, "step_trace": step_trace,
+            "fixed_batch_losses": losses, "cpu_vs_card": cpu}
+
+
+def train_cls_phase(seed: int, logs: Path, env_names) -> dict:
+    """Two ClassifierTask steps of 5-5_full_cls_dynamic (Cnn14 with
+    SpecAugment, 32 x 262144, mixup off) through fit on the card."""
+    cfg = train_cfg(CLS_ARGS, seed, logs, f"trainer.max_steps={CLS_STEPS}",
+                    f"datamodule.train_chunks={CLS_B * CLS_STEPS}",
+                    f"datamodule.val_chunks={CLS_B}", f"datamodule.test_chunks={CLS_B}")
+    m = cfg["model"]
+    check(cfg["datamodule"]["train_batch_size"] == CLS_B and m["name"] == "cnn14"
+          and m["network"]["specaugment"] and not m["mixup"],
+          "5-5_full_cls_dynamic: Cnn14 with SpecAugment, batch 32, mixup off")
+    # ---- the classifier's training path ----
+    envelope.launches = 0
+    state, test_metrics = fit(cfg)
+    torch.cuda.synchronize()
+    launches = envelope.launches
+    # ---- end of the path ----
+    finite_metrics(test_metrics, "classifier test")
+    train_rows = [r for r in csv_rows(logs) if r.get("train_loss")]
+    check(len(train_rows) == CLS_STEPS, f"{CLS_STEPS} classifier train rows")
+    finite_metrics({k: float(v) for r in train_rows for k, v in r.items()
+                    if k.startswith("train_") and v}, "classifier train")
+    check(launches >= 1, "the classifier's renders launched the envelope kernel")
+    return {"batch": CLS_B, "samples": T, "steps": state.step, "envelope_launches": launches,
+            "train_loss": [float(r["train_loss"]) for r in train_rows],
+            "test_metrics": test_metrics}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -651,10 +898,21 @@ def main(argv=None) -> int:
     # ---- end of the main path ----
 
     ph.done("cpu_vs_card", **cpu_vs_card(cls, slots, wet, dry))
+    del cls, slots, chain, chain_all, chain_oracle
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        train = train_phase(args.seed, Path(tmp) / "train", row["device_kernels"])
+        ph.done("train", **train)
+        train_cls = train_cls_phase(args.seed, Path(tmp) / "train_cls",
+                                    row["device_kernels"])
+        ph.done("train_cls", **train_cls)
 
     row["launches_by_path"] = {"render_detect_remove": launches["envelope"],
-                               "synth": synth["envelope_launches"]}
-    row["launches"] = launches["envelope"] + synth["envelope_launches"]
+                               "synth": synth["envelope_launches"],
+                               "train": train["fit_envelope_launches"],
+                               "train_cls": train_cls["envelope_launches"]}
+    row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": [row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,22 +1,26 @@
-"""The port's copy of the JAX package's render defaults.
+"""The port's config tree and its Hydra-like CLI.
 
-Counterpart of ``remfx_tpu/config/core.py``: the top level and the
-``datamodule`` of ``default_config`` (the mirror of the reference's
-cfg/config.yaml) and ``default_effect_overrides`` (cfg/effects/all.yaml),
-which the data-synthesis path reads. Copied, not imported, so that the
-port loads nothing of the JAX package; ``tests/test_torch_render.py``
-holds the copies equal to the JAX dicts. The rest of that config (model,
-trainer, callbacks) and the CLI surface are not ported yet.
+Counterpart of ``remfx_tpu/config/core.py``: ``default_config`` (the
+mirror of the reference's cfg/config.yaml), ``default_effect_overrides``
+(cfg/effects/all.yaml), ``+exp=NAME`` experiment composition, dotted
+overrides (``datamodule.train_batch_size=8``) and ``model=NAME`` group
+swaps. Copied, not imported, so that the port loads nothing of the JAX
+package; ``tests/test_torch_render.py`` and ``tests/test_torch_train.py``
+hold the copies equal to the JAX ones. ``accelerator`` picks the device
+(``train/loop.py:device_of``): ``"cpu"`` runs on the host, as the tests
+do; anything else is the card.
 """
 
 from __future__ import annotations
 
+import ast
+import copy
 import os
+from typing import Any
 
 
 def default_config() -> dict:
-    """Mirror of cfg/config.yaml (reference, lines 1-120): the top level
-    and the datamodule."""
+    """Mirror of cfg/config.yaml (reference, lines 1-120)."""
     return {
         "seed": 12345,
         "train": True,
@@ -47,6 +51,31 @@ def default_config() -> dict:
             "render_batch_size": 8,
             "num_workers": 8,
         },
+        "model": None,
+        "trainer": {
+            "max_steps": 50000,
+            "max_epochs": -1,
+            "log_every_n_steps": 1,
+            "gradient_clip_val": 10.0,
+            "accumulate_grad_batches": 1,
+            # 32 (reference cfg/config.yaml:111) or "bf16-mixed": bf16
+            # compute with fp32 master weights and optimizer
+            "precision": 32,
+            "devices": 1,
+            # resume from the newest "last" ckpt in logs_dir (preemption
+            # recovery; upgrade over reference cfg/config.yaml:36 which
+            # only saves last and requires a manual ckpt_path)
+            "auto_resume": False,
+        },
+        "callbacks": {
+            "model_checkpoint": {"monitor": "valid_loss", "mode": "min",
+                                 "save_top_k": 1, "save_last": True},
+        },
+        "logger": "csv",
+        "ckpt_path": None,
+        # params-only donor checkpoint for fine-tuning (fresh optimizer/
+        # LR schedule); this framework's addition, no reference analogue
+        "warm_start": None,
     }
 
 
@@ -76,3 +105,94 @@ def default_effect_overrides() -> dict:
             "min_mix": 0.1, "max_mix": 0.35,
         },
     }
+
+
+def _parse_value(s: str) -> Any:
+    low = s.strip()
+    if low in ("null", "None", "~"):
+        return None
+    if low in ("true", "True"):
+        return True
+    if low in ("false", "False"):
+        return False
+    try:
+        return ast.literal_eval(low)
+    except (ValueError, SyntaxError):
+        pass
+    # Hydra-style bracket list with bare words: [distortion,compressor],
+    # possibly nested: [[distortion],[chorus,delay]] — split only at
+    # top-level commas so nested lists recurse intact
+    if low.startswith("[") and low.endswith("]"):
+        inner = low[1:-1].strip()
+        if not inner:
+            return []
+        items, depth, start = [], 0, 0
+        for i, ch in enumerate(inner):
+            if ch in "[(":
+                depth += 1
+            elif ch in "])":
+                depth -= 1
+            elif ch == "," and depth == 0:
+                items.append(inner[start:i])
+                start = i + 1
+        items.append(inner[start:])
+        return [_parse_value(item) for item in items]
+    return low
+
+
+def set_by_path(cfg: dict, path: str, value: Any):
+    keys = path.split(".")
+    node = cfg
+    for k in keys[:-1]:
+        if k not in node or not isinstance(node[k], dict):
+            node[k] = {}
+        node = node[k]
+    node[keys[-1]] = value
+
+
+def deep_update(base: dict, upd: dict) -> dict:
+    for k, v in upd.items():
+        if isinstance(v, dict) and isinstance(base.get(k), dict):
+            deep_update(base[k], v)
+        else:
+            base[k] = v
+    return base
+
+
+def parse_cli(argv: list[str]) -> dict:
+    """Parse Hydra-style args: ``+exp=NAME``, ``a.b=c``, ``+a.b=c``."""
+    cfg = default_config()
+    exp_name = None
+    overrides = []
+    for arg in argv:
+        if "=" not in arg:
+            raise SystemExit(f"cannot parse argument {arg!r}; expected key=value")
+        k, v = arg.split("=", 1)
+        k = k.lstrip("+")
+        if k == "exp":
+            exp_name = v
+        else:
+            overrides.append((k, _parse_value(v)))
+    if exp_name is not None:
+        from remfx_tpu_torch.config.experiments import apply_experiment
+
+        cfg = apply_experiment(cfg, exp_name)
+    for k, v in overrides:
+        if k == "model" and isinstance(v, str):
+            # Hydra group override `model=NAME`: swap in the named model
+            # config (cfg/model/NAME.yaml equivalent)
+            from remfx_tpu_torch.config.experiments import MODEL_CONFIGS
+
+            if v not in MODEL_CONFIGS:
+                raise SystemExit(
+                    f"unknown model config {v!r}; "
+                    f"known: {sorted(MODEL_CONFIGS)}"
+                )
+            set_by_path(cfg, k, copy.deepcopy(MODEL_CONFIGS[v]))
+            continue
+        set_by_path(cfg, k, v)
+    return cfg
+
+
+def clone(cfg: dict) -> dict:
+    return copy.deepcopy(cfg)

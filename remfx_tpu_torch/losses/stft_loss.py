@@ -30,7 +30,11 @@ def _stft_mag(x, n_fft, hop, window, eps):
 def stft_loss(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
               win_length: int, w_sc: float = 1.0, w_log_mag: float = 1.0,
               eps: float = 1e-8) -> torch.Tensor:
-    """One-resolution STFT loss between input ``x`` and target ``y``."""
+    """One-resolution STFT loss between input ``x`` and target ``y``. A
+    bf16 input is transformed in fp32 (torch's FFTs take no bf16), where
+    the JAX package runs its DFT-as-matmul in bf16."""
+    if x.dtype == torch.bfloat16:
+        x, y = x.float(), y.float()
     window = hann_window(win_length, dtype=x.dtype, device=x.device)
     mag_x = _stft_mag(x, n_fft, hop, window, eps)
     mag_y = _stft_mag(y, n_fft, hop, window, eps)

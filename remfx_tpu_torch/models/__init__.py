@@ -61,9 +61,14 @@ def make_cnn14(
     n_fft=2048,
     hop_length=512,
     n_mels=128,
+    specaugment=False,
+    freq_mask_param=64,
+    time_mask_param=128,
     device=None,
-    **_ignored,
+    **ignored,
 ) -> Cnn14:
+    if ignored:
+        log.warning("make_cnn14 ignores network config keys: %s", sorted(ignored))
     net = Cnn14(
         num_classes=num_classes,
         sample_rate=sample_rate,
@@ -71,6 +76,9 @@ def make_cnn14(
         n_fft=n_fft,
         hop_length=hop_length,
         n_mels=n_mels,
+        specaugment=specaugment,
+        freq_mask_param=freq_mask_param,
+        time_mask_param=time_mask_param,
     )
     return net.to(resolve_device(device)).eval()
 

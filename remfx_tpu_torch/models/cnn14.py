@@ -12,8 +12,15 @@ Layout is NCHW, ``(B, 1, mel, time)``, where the JAX module is NHWC; the
 state-dict names are the reference's (``conv_block{n}.conv1``, ``bn1``,
 ``fc1``, ``heads.{i}``). The reference's ``bn0`` is never applied in its
 forward; the JAX module declares it without ever creating its
-parameters, so it has no parameters here either. SpecAugment is a
-training-time option and waits for the training slice.
+parameters, so it has no parameters here either.
+
+Train mode: the BatchNorms train as flax's (``models/batchnorm.py``), and
+with ``specaugment`` each example gets one frequency and one time mask
+(``remfx_tpu/models/cnn14.py:55-61,106-117``): width ~ U[0, param), start
+~ U[0, length - width), drawn from the ``generator`` passed to
+``forward`` (the default generator when none is). Dropout draws from
+torch's default generator. At another ``sample_rate`` the input is
+resampled to ``model_sample_rate`` first (``ops/resample.py``).
 """
 
 from __future__ import annotations
@@ -22,16 +29,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from remfx_tpu_torch.models.batchnorm import BatchNorm2d
 from remfx_tpu_torch.ops.mel import MelSpectrogram
+from remfx_tpu_torch.ops.resample import resample
 
 
 class ConvBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(out_channels)
+        self.bn1 = BatchNorm2d(out_channels)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(out_channels)
+        self.bn2 = BatchNorm2d(out_channels)
 
     def forward(self, x, pool_size=(2, 2)):
         """x: (B, C, H, W); 3x3 conv-BN-ReLU twice, then average pooling."""
@@ -45,6 +54,34 @@ class ConvBlock(nn.Module):
         return x
 
 
+def mask_from_draws(width: torch.Tensor, u: torch.Tensor, length: int) -> torch.Tensor:
+    """SpecAugment's mask (True = masked) of each row from its draws:
+    ``width`` ~ U[0, param) and ``u`` ~ U[0, 1), both ``(B,)`` float32; the
+    mask starts at ``u * (length - width)`` (``_rand_mask`` of the JAX
+    package)."""
+    start = u * (length - width)
+    idx = torch.arange(length, dtype=torch.float32, device=width.device)
+    return (idx >= start[:, None]) & (idx < (start + width)[:, None])
+
+
+def draw_masks(generator, batch: int, n_mel: int, n_time: int,
+               freq_mask_param: float, time_mask_param: float, device=None):
+    """-> (frequency masks (B, n_mel), time masks (B, n_time)), each row's
+    width and start drawn from ``generator`` (on the CPU)."""
+    def draw(length, param):
+        width = torch.rand(batch, generator=generator) * float(param)
+        u = torch.rand(batch, generator=generator)
+        return mask_from_draws(width, u, length).to(device)
+
+    return draw(n_mel, freq_mask_param), draw(n_time, time_mask_param)
+
+
+def apply_masks(m: torch.Tensor, fmask: torch.Tensor, tmask: torch.Tensor):
+    """Zero the masked mel bands and frames of ``m (B, mel, time)``."""
+    m = torch.where(fmask[:, :, None], 0.0, m)
+    return torch.where(tmask[:, None, :], 0.0, m)
+
+
 class Cnn14(nn.Module):
     def __init__(
         self,
@@ -54,15 +91,16 @@ class Cnn14(nn.Module):
         n_fft: int = 1024,
         hop_length: int = 256,
         n_mels: int = 128,
+        specaugment: bool = False,
+        freq_mask_param: int = 64,
+        time_mask_param: int = 128,
     ):
         super().__init__()
-        if sample_rate != model_sample_rate:
-            # the JAX module resamples here (ops/resample.py); the port
-            # has no resampler yet
-            raise ValueError(
-                f"sample_rate {sample_rate} != model_sample_rate "
-                f"{model_sample_rate}: resampling is not ported yet"
-            )
+        self.sample_rate = sample_rate
+        self.model_sample_rate = model_sample_rate
+        self.specaugment = specaugment
+        self.freq_mask_param = freq_mask_param
+        self.time_mask_param = time_mask_param
         self.melspec = MelSpectrogram(model_sample_rate, n_fft, hop_length, n_mels)
         widths = (64, 128, 256, 512, 1024, 2048)
         for i, (cin, cout) in enumerate(zip((1,) + widths[:-1], widths)):
@@ -70,24 +108,34 @@ class Cnn14(nn.Module):
         self.fc1 = nn.Linear(2048, 2048)
         self.heads = nn.ModuleList(nn.Linear(2048, 1) for _ in range(num_classes))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         """x: (B, 1, T) or (B, T) -> (B, num_classes) sigmoid probs."""
-        h = self.embed(x)
+        h = self.embed(x, generator)
         return torch.cat([torch.sigmoid(head(h)) for head in self.heads], dim=-1)
 
-    def embed(self, x: torch.Tensor) -> torch.Tensor:
-        """The 2048-d post-fc1 ReLU features."""
+    def front_end(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """(B, 1, T) or (B, T) -> the standardised mel (B, mel, time), with
+        SpecAugment's masks in train mode."""
         if x.dim() == 3:
             x = x[:, 0, :]
+        if self.sample_rate != self.model_sample_rate:
+            x = resample(x, int(self.sample_rate), int(self.model_sample_rate))
         m = self.melspec(x)  # (B, mel, time)
+        if self.specaugment and self.training:
+            fmask, tmask = draw_masks(generator, m.shape[0], m.shape[1], m.shape[2],
+                                      self.freq_mask_param, self.time_mask_param,
+                                      m.device)
+            m = apply_masks(m, fmask, tmask)
         # per-example standardisation over (mel, time), ddof=1 like torch.std
         mean = m.mean(dim=(1, 2), keepdim=True)
         n = m.shape[1] * m.shape[2]
         var = ((m - mean) ** 2).sum(dim=(1, 2), keepdim=True) / (n - 1)
         # a silent clip has var 0; real spectrograms sit far above the floor
-        m = (m - mean) / torch.clamp(torch.sqrt(var), min=1e-6)
+        return (m - mean) / torch.clamp(torch.sqrt(var), min=1e-6)
 
-        h = m[:, None]  # (B, 1, mel, time)
+    def embed(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """The 2048-d post-fc1 ReLU features."""
+        h = self.front_end(x, generator)[:, None]  # (B, 1, mel, time)
         for i in range(1, 6):
             h = getattr(self, f"conv_block{i}")(h, (2, 2))
             h = F.dropout(h, 0.2, self.training)

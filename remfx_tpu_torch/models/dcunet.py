@@ -40,6 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from remfx_tpu_torch.models.batchnorm import BatchNorm2d
+
 # (in_chan, out_chan, kernel (F, T), stride (F, T)) per encoder stage;
 # paddings are asteroid "auto" = (k - 1) // 2
 LARGE_DCUNET_20 = (
@@ -181,14 +183,13 @@ class ComplexConv(nn.Module):
 
 class OnReImBatchNorm(nn.Module):
     """norm_type "bN": independent BatchNorm on re and im (eps 1e-5;
-    flax momentum 0.9 is torch momentum 0.1). In train mode torch updates
-    ``running_var`` with the unbiased batch variance where flax uses the
-    biased one; eval, the chain's mode, uses the stored statistics."""
+    flax momentum 0.9 is torch momentum 0.1), trained as flax trains it
+    (``models/batchnorm.py``: the biased variance in ``running_var``)."""
 
     def __init__(self, features: int):
         super().__init__()
-        self.re_module = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
-        self.im_module = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        self.re_module = BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        self.im_module = BatchNorm2d(features, eps=1e-5, momentum=0.1)
 
     def forward(self, xr, xi):
         return self.re_module(xr), self.im_module(xi)

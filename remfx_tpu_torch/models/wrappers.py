@@ -34,9 +34,14 @@ class ModelWrapper(nn.Module):
     def loss_and_output(self, batch):
         """``(x, target) -> (loss, output)``: the JAX wrapper's ``forward``
         (``remfx_tpu/models/wrappers.py:65-83``), with the loss of
-        ``losses.removal_loss``."""
+        ``losses.removal_loss``. In train mode the target is cast to the
+        output's dtype."""
         x, target = batch
         output = self(x)
+        if self.training and output.dtype != target.dtype:
+            # bf16-mixed: the loss takes the target in the output's dtype
+            # (remfx_tpu/models/wrappers.py:71-79)
+            target = target.to(output.dtype)
         return removal_loss(output, target), output
 
     @torch.no_grad()

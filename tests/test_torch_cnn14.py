@@ -71,5 +71,16 @@ def test_pool_window_is_clamped_to_the_input():
 
 
 def test_other_sample_rate_is_refused():
-    with pytest.raises(ValueError, match="resampling"):
-        make_cnn14(sample_rate=44100, model_sample_rate=48000, device="cpu")
+    """Another input rate was refused before the port had a resampler; it
+    is now resampled to the model's rate (ops/resample.py), as the JAX
+    Cnn14 does: 44.1 kHz in, the same probabilities as JAX (TOL)."""
+    net = jax_make_cnn14(sample_rate=44100, model_sample_rate=48000)
+    x = _clips(15000, seed=3)
+    variables = jax.device_get(jax.jit(net.init)(jax.random.PRNGKey(1),
+                                                 jnp.asarray(x)))
+    port = make_cnn14(sample_rate=44100, model_sample_rate=48000, device="cpu")
+    port.load_state_dict(cnn14_state_dict(variables), strict=True)
+    want = np.asarray(net.apply(variables, jnp.asarray(x)))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    assert np.abs(got - want).max() <= TOL

@@ -353,3 +353,116 @@ def test_render_batch_on_the_card_matches_the_cpu(cuda):
         assert torch.equal(g_.cpu(), w)
     for g_, w in zip(got[:2], want[:2]):
         assert ((g_.cpu() - w).abs().max() / w.abs().max()).item() <= 1e-4
+
+
+# ---- the training path, card against CPU ----
+
+def _train_step(name, net, T, dev, seed=0):
+    """One RemovalTask.train_step of a small model from seeded weights on a
+    seeded batch: (loss, parameters and buffers after the step)."""
+    from remfx_tpu_torch.models import make_model
+    from remfx_tpu_torch.train.tasks import RemovalTask
+    torch.manual_seed(seed)
+    w = make_model(name, sample_rate=SR, device="cpu", **net).to(dev)
+    x = _clips(2, 1, T, seed=seed + 1)
+    y = 0.5 * torch.tanh(2 * x)
+    task = RemovalTask(w, max_steps=100)
+    _, m = task.train_step(task.init_state(), (x.to(dev), y.to(dev)))
+    return m["train_loss"].item(), {k: v.detach().cpu() for k, v in w.state_dict().items()}
+
+
+@pytest.mark.parametrize("name,net,T", [
+    ("demucs", dict(channels=8, nfft=256, depth=4), 16384),
+    ("dcunet", dict(architecture="Mini-DCUNet-6", stft_kernel_size=64, norm_type="bN"), 8000),
+])
+def test_train_step_on_the_card_matches_the_cpu(cuda, name, net, T):
+    """The loss to 1e-5 relative; the parameters within 2.05 lr and 99.9%
+    of their elements within 0.05 lr (Adam moves each by about lr = 1e-4 a
+    step whatever its gradient's size, so a gradient near zero whose sign
+    the two devices round differently moves by up to 2 lr); the running
+    statistics to 1e-5 of their largest value."""
+    loss_cpu, sd_cpu = _train_step(name, net, T, "cpu")
+    loss_card, sd_card = _train_step(name, net, T, cuda)
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    errs = []
+    for k, want in sd_cpu.items():
+        got = sd_card[k]
+        if "running" in k:
+            assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item(), k
+        elif "num_batches" in k:
+            assert torch.equal(got, want)
+        else:
+            errs.append((got - want).abs().ravel())
+    errs = torch.cat(errs)
+    assert errs.max().item() <= 2.05e-4
+    assert (errs > 0.05e-4).float().mean().item() <= 1e-3
+
+
+def test_batchnorm_running_statistics_on_the_card(cuda):
+    """flax's update (the biased variance) on the card as on the CPU:
+    1e-6 relative; the train-mode output to 1e-5."""
+    from remfx_tpu_torch.models.batchnorm import BatchNorm2d
+    g = torch.Generator().manual_seed(5)
+    x = 2 * torch.randn(8, 16, 33, 40, generator=g) + 0.5
+    cpu = BatchNorm2d(16).train()
+    card = BatchNorm2d(16).to(cuda).train()
+    for _ in range(3):
+        want = cpu(x)
+        got = card(x.to(cuda)).cpu()
+    assert (got - want).abs().max().item() <= 1e-5
+    for k in ("running_mean", "running_var"):
+        w, c = getattr(cpu, k), getattr(card, k).cpu()
+        assert (c - w).abs().max().item() <= 1e-6 * w.abs().max().item(), k
+    var = x.var(dim=(0, 2, 3), unbiased=False)
+    assert (cpu.running_var - (0.9 ** 3 + (1 - 0.9 ** 3) * var)).abs().max().item() <= 1e-5
+
+
+def test_dynamic_batch_on_the_card(cuda):
+    """compression_aug's dynamic batch rendered on the card, left there:
+    every row compressed, 0-4 kept effects, -20 LUFS within 0.01 LU."""
+    from remfx_tpu_torch.data.datasets import DynamicEffectDataset
+    from remfx_tpu_torch.ops.loudness import integrated_loudness
+    ds = DynamicEffectDataset(
+        total_chunks=8, mode="train", sample_rate=SR, chunk_size=65536, seed=3,
+        effects_to_keep=["distortion", "chorus", "delay", "reverb"],
+        effects_to_remove=["compressor"], num_kept_effects=[0, 4],
+        num_removed_effects=[1, 1], synthetic=True, device=cuda)
+    before = envelope.launches
+    wet, dry, dl, wl = ds.get_batch(np.arange(8))
+    assert envelope.launches >= before + 1
+    assert all(t.device.type == "cuda" for t in (wet, dry, dl, wl))
+    assert wet.shape == (8, 1, 65536)
+    comp = ALL_EFFECTS.index("compressor")
+    assert bool((wl[:, comp] == 1).all() and (wl.sum(1) == 1).all())
+    assert bool((dl[:, comp] == 0).all()) and int(dl.sum(1).max()) <= 4
+    lufs = torch.cat([integrated_loudness(wet, SR), integrated_loudness(dry, SR)])
+    assert (lufs + 20).abs().max().item() <= 0.01
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A TrainState saved from the card and restored into another is equal
+    bit for bit: parameters, AdamW's moments, the schedule, the counters."""
+    from remfx_tpu_torch.models import make_model
+    from remfx_tpu_torch.train.checkpoint import CheckpointManager
+    from remfx_tpu_torch.train.tasks import RemovalTask
+
+    def task():
+        torch.manual_seed(0)
+        return RemovalTask(make_model("tcn", nblocks=3, channel_width=8, kernel_size=3,
+                                      dilation_growth=2, device=cuda), max_steps=4)
+
+    t1 = task()
+    s1 = t1.init_state()
+    x = _clips(2, 1, 4096).to(cuda)
+    for _ in range(3):
+        t1.train_step(s1, (x, 0.5 * x))
+    CheckpointManager(str(tmp_path)).save_last(s1, step=3)
+    t2 = task()
+    s2 = t2.init_state()
+    CheckpointManager(str(tmp_path)).restore(s2, "last")
+    a, b = s1.state_dict(), s2.state_dict()
+    assert all(torch.equal(v, b["model"][k]) for k, v in a["model"].items())
+    for pa, pb in zip(a["optimizer"]["state"].values(), b["optimizer"]["state"].values()):
+        assert all(torch.equal(pa[k].to(cuda), pb[k].to(cuda)) for k in pa)
+    assert a["scheduler"] == b["scheduler"] and (s2.step, s2.mini_step) == (3, 0)
+    assert s2.optimizer.param_groups[0]["lr"] == s1.optimizer.param_groups[0]["lr"]

@@ -10,6 +10,12 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "remfx_tpu_torch"
+TRAINING_PATH = (
+    "config.core", "config.experiments", "data.sources", "data.datasets",
+    "models.batchnorm", "ops.resample", "train", "train.__main__",
+    "train.checkpoint", "train.loggers", "train.loop", "train.metrics",
+    "train.tasks", "utils.heartbeat", "utils.logging", "utils.timing",
+)
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|remfx_tpu)\b")
 
 
@@ -28,15 +34,17 @@ def test_import_leaves_jax_out():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'flax', 'remfx_tpu.')) or m == 'remfx_tpu')\n"
         "assert not bad, bad\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # every module of the slice was imported
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    # every module of the port was imported, the training path's too
+    names = set(out.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 45
+    assert {f"remfx_tpu_torch.{m}" for m in TRAINING_PATH} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
