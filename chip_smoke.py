@@ -28,8 +28,8 @@ sub-batch and a dense stage; all three bit for bit with every label on),
 test_step (the chain's loss and metrics against the dry clips), and
 cpu_vs_card (clip 0 on the CPU with the same weights: the classifier and
 HDemucs at full width, the five-slot chain and test_step on its first
-65536 samples), train and train_cls (below). Then the kernel summary
-line, and the result line last.
+65536 samples), train and train_cls and trained (below). Then the kernel
+summary line, and the result line last.
 
 The kernels phase holds the envelope's split kernel (the main path's)
 bit for bit to the serial kernel, on the demo batch and on an adversarial
@@ -60,6 +60,27 @@ scripts/train.py), through fit / test of remfx_tpu_torch.train:
   mixup off), two steps through fit; finite metrics and the envelope's
   launches.
 
+Then the trained path (the port's counterpart of the JAX package's
+scripts/demo_detect.py and scripts/remfx_detect.py), with no JAX:
+
+- trained: the vendored checkpoints of the chain read by the port's
+  orbax reader (compat/ocdbt.py, libzstd through ctypes), each timed:
+  classifier_cnn14_r5, tcn_distortion_aug and dcunet_{reverb_aug_r4,
+  chorus_aug_r5,delay_aug_r5} always (a missing one fails the phase),
+  and demucs_compressor_aug_r5 where the checkout holds it (a full git
+  checkout does; the copy that .chiprunignore trims to 256 MiB does not);
+  demo_detect's chain built by build_chain on the card from exactly
+  those directories (the compressor slot only with HDemucs'); detect ->
+  remove of demos/synth_distortion_reverb.wav (262144 samples) against
+  demos/synth_target.wav: the detected effects (distortion and reverb
+  among them, equal to the CPU's), the probabilities (card against CPU),
+  the removed effects, input and output SI-SDR, the detect and remove
+  times and the peak allocation; the trained chain card against CPU on
+  the first 65536 samples. Then stream_chain over four demo clips joined
+  end to end (1,048,576 samples, five windows of 262144 overlapping by
+  16384): audio seconds per wall second, the labels equal to detect on
+  the loudest window, and one window equal to chain.remove bit for bit.
+
 Usage: python3 chip_smoke.py [--seed N]
 Needs one CUDA device: with none it exits non-zero and prints no result.
 """
@@ -67,6 +88,7 @@ Needs one CUDA device: with none it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import csv
 import json
@@ -82,7 +104,11 @@ import torch
 
 from remfx_tpu_torch import ALL_EFFECTS
 from remfx_tpu_torch.augment import EffectChainRenderer
+from remfx_tpu_torch.chain.build import build_chain
 from remfx_tpu_torch.chain.inference import ChainInference
+from remfx_tpu_torch.chain.stream import _windows, stream_chain
+from remfx_tpu_torch.cli.demo_detect import detect_remove, trained_cfg
+from remfx_tpu_torch.compat import ocdbt
 from remfx_tpu_torch.config.core import default_config, parse_cli
 from remfx_tpu_torch.data.wav import read_wav
 from remfx_tpu_torch.fx import compressor, make_effect
@@ -92,7 +118,8 @@ from remfx_tpu_torch.ops import _build
 from remfx_tpu_torch.ops.envelope import (envelope, envelope_flags,
                                           envelope_plain, envelope_serial)
 from remfx_tpu_torch.ops.loudness import integrated_loudness, loudness_normalize
-from remfx_tpu_torch.train.checkpoint import find_latest_run, read_state, restore_from
+from remfx_tpu_torch.train.checkpoint import (find_latest_run, load_trained_classifier,
+                                              read_state, restore_from, restore_tree)
 from remfx_tpu_torch.train.loop import build_datamodule, build_task, fit, test
 from remfx_tpu_torch.train.tasks import RemovalTask
 from remfx_tpu_torch.utils.regroup import bucket_size
@@ -803,6 +830,146 @@ def train_cls_phase(seed: int, logs: Path, env_names) -> dict:
             "test_metrics": test_metrics}
 
 
+# ---------------------------------------------------------- trained weights
+
+# the vendored checkpoints that every checkout carries, the trimmed copy
+# of .chiprunignore included: the classifier and the four removers other
+# than HDemucs, whose 130 MB do not fit beside the classifier's 124 MB
+# in that copy
+TRAINED_DIRS = ("classifier_cnn14_r5", "tcn_distortion_aug", "dcunet_reverb_aug_r4",
+                "dcunet_chorus_aug_r5", "dcunet_delay_aug_r5")
+TRAINED_SLOTS = ("RandomPedalboardDistortion", "RandomPedalboardReverb",
+                 "RandomPedalboardChorus", "RandomPedalboardDelay")
+# HDemucs' checkpoint, in a full checkout only; demo_detect's map then
+# has the compressor slot too, and the phase runs it
+COMPRESSOR_DIR, COMPRESSOR_SLOT = "demucs_compressor_aug_r5", "RandomPedalboardCompressor"
+DEMO_IN = "demos/synth_distortion_reverb.wav"  # true effects: distortion, reverb
+DEMO_DRY = "demos/synth_target.wav"
+STREAM_FILES = ("example_distortion_reverb", "example_target",
+                "synth_distortion_reverb", "synth_target")
+STREAM_CHUNK, STREAM_OVERLAP = 262144, 16384  # stream_chain's defaults
+
+
+def trained_dirs(root: Path = ROOT) -> tuple[tuple, tuple]:
+    """(the vendored checkpoint directories the trained phase reads, the
+    removal slots demo_detect's map must then have): the five of
+    TRAINED_DIRS always (a missing one fails), HDemucs' where ``root``
+    holds it."""
+    def vendored(name):
+        return ((root / "ckpts" / name / "hparams.json").is_file()
+                and (root / "ckpts" / name / "variables").is_dir())
+
+    for name in TRAINED_DIRS:
+        check(vendored(name), f"ckpts/{name} is in the checkout")
+    with_compressor = vendored(COMPRESSOR_DIR)
+    return (TRAINED_DIRS + (COMPRESSOR_DIR,) * with_compressor,
+            TRAINED_SLOTS + (COMPRESSOR_SLOT,) * with_compressor)
+
+
+def trained_phase(dev) -> dict:
+    """demo_detect's chain (the port's reader and build_chain, the
+    vendored map restricted to the directories present) on the card:
+    detect -> remove of the synthetic distortion + reverb clip at 262144
+    samples against its dry target, the labels and the removal against
+    the CPU, then stream_chain over four clips joined end to end."""
+    dirs, slots = trained_dirs()
+    libzstd = ocdbt.libzstd()._name
+    read_s = {}
+    for name in dirs:
+        t0 = time.perf_counter()
+        restore_tree(ROOT / "ckpts" / name / "variables")
+        read_s[name] = time.perf_counter() - t0
+    with contextlib.chdir(ROOT):  # demo_detect's paths are relative
+        cfg = trained_cfg(parse_cli(["+exp=remfx_detect"]))
+        check(sorted(cfg["ckpts"]) == sorted(slots)
+              and cfg["classifier_ckpt"] == "ckpts/classifier_cnn14_r5",
+              f"the vendored map of the checkout: {sorted(cfg['ckpts'])}, "
+              f"expected {sorted(slots)}")
+        t0 = time.perf_counter()
+        chain = build_chain(copy.deepcopy(cfg), None, device=dev)
+        build_s = time.perf_counter() - t0
+        chain_cpu = build_chain(copy.deepcopy(cfg), None, device="cpu")
+    audio, sr = read_wav(ROOT / DEMO_IN)
+    dry, _ = read_wav(ROOT / DEMO_DRY)
+    check(sr == SR and audio.shape == (1, T) and dry.shape == (1, T),
+          "the demo clip and its target: mono, 262144 samples")
+
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the trained path: counts at 0 just before, read just after ----
+    envelope.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report, y = detect_remove(chain, audio, dry)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = envelope.launches
+    # ---- end of the trained path ----
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check({"distortion", "reverb"} <= set(report["detected_effects"]),
+          f"the clip's true effects detected: {report['detected_effects']}")
+    check(y.shape == (1, T_OUT) and bool(np.isfinite(y).all()),
+          f"trained output finite, (1, {T_OUT})")
+    check(np.isfinite(report["input_si_sdr_db"])
+          and np.isfinite(report["output_si_sdr_db"]), "SI-SDR finite")
+
+    x = torch.from_numpy(audio)[None].to(dev)
+    labels = chain.detect(x)
+    detect_ms = wall_ms(lambda: chain.detect(x))
+    remove_ms = wall_ms(lambda: chain.remove(x, labels))
+    with torch.no_grad():
+        probs_cpu = chain_cpu.classifier(x.cpu())
+        probs_card = chain.classifier(x).cpu()
+    labels_cpu = chain_cpu.detect(x.cpu())
+    cpu_effects = [e for e, v in zip(ALL_EFFECTS, labels_cpu[0].tolist()) if v > 0.5]
+    check(report["detected_effects"] == cpu_effects,
+          f"card labels {report['detected_effects']} equal the CPU's {cpu_effects}")
+    probs_err = (probs_card - probs_cpu).abs().max().item()
+    check(probs_err <= CPU_TOL, f"trained probs card vs CPU {probs_err} <= {CPU_TOL}")
+    x0 = x[..., :CPU_T]
+    chain_rel = max_rel(chain_cpu.remove(x0.cpu(), labels_cpu)[0],
+                        chain.remove(x0, labels)[0])
+    check(chain_rel <= CPU_TOL, f"trained chain card vs CPU {chain_rel} <= {CPU_TOL}")
+
+    # ---- stream: the same chain over four clips joined end to end ----
+    joined = np.concatenate([read_wav(ROOT / "demos" / f"{f}.wav")[0]
+                             for f in STREAM_FILES], axis=-1)
+    xs = torch.from_numpy(np.ascontiguousarray(joined, np.float32)).to(dev)
+    starts = _windows(xs.shape[-1], STREAM_CHUNK, STREAM_CHUNK - STREAM_OVERLAP)
+    envelope.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ys, stream_labels = stream_chain(chain, xs, STREAM_CHUNK, STREAM_OVERLAP)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    stream_launches = envelope.launches
+    check(ys.shape == xs.shape and bool(torch.isfinite(ys).all()),
+          f"stream output finite, {tuple(xs.shape)}")
+    frames = torch.stack([xs[:, s:s + STREAM_CHUNK] for s in starts])
+    loudest = int(torch.argmax(frames.pow(2).mean(dim=(1, 2))))
+    check(torch.equal(stream_labels, chain.detect(frames[loudest][None])[0]),
+          "stream labels equal detect on the loudest window")
+    one, _ = stream_chain(chain, xs[:, :STREAM_CHUNK], STREAM_CHUNK, STREAM_OVERLAP,
+                          labels=stream_labels)
+    want, _ = chain.remove(xs[None, :, :STREAM_CHUNK], stream_labels[None])
+    check(torch.equal(one, want[0]), "one window equals chain.remove bit for bit")
+    audio_s = xs.shape[-1] / SR
+    return {"libzstd": libzstd, "compressor_ckpt": COMPRESSOR_DIR in dirs,
+            "read_s": read_s, "build_s": build_s,
+            "slots": {k: type(m.module).__name__ for k, m in chain.models.items()},
+            "envelope_launches": launches, **report,
+            "cpu_detected_effects": cpu_effects, "probs_max_abs_err": probs_err,
+            "chain_samples": CPU_T, "chain_max_rel_err": chain_rel,
+            "first_call_s": first_s, "detect_ms": detect_ms, "remove_ms": remove_ms,
+            "peak_allocated_gib": peak,
+            "stream": {"samples": xs.shape[-1], "windows": len(starts),
+                       "chunk": STREAM_CHUNK, "overlap": STREAM_OVERLAP,
+                       "labels": stream_labels.tolist(), "loudest_window": loudest,
+                       "seconds": stream_s, "audio_s": audio_s,
+                       "audio_s_per_s": audio_s / stream_s,
+                       "envelope_launches": stream_launches,
+                       "one_window_bit_equal": True}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -908,10 +1075,15 @@ def main(argv=None) -> int:
                                     row["device_kernels"])
         ph.done("train_cls", **train_cls)
 
+    trained = trained_phase(dev)
+    ph.done("trained", **trained)
+
     row["launches_by_path"] = {"render_detect_remove": launches["envelope"],
                                "synth": synth["envelope_launches"],
                                "train": train["fit_envelope_launches"],
-                               "train_cls": train_cls["envelope_launches"]}
+                               "train_cls": train_cls["envelope_launches"],
+                               "trained": trained["envelope_launches"],
+                               "stream": trained["stream"]["envelope_launches"]}
     row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": [row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,9 +21,9 @@ Layouts: flax conv ``(kh, kw, in, out)`` / ``(k, in, out)`` -> torch
 var}`` -> ``weight``, ``bias``, ``running_mean``, ``running_var``.
 Every leaf of the JAX tree must be used: a leaf left over raises.
 
-No code here reads ``ckpts/``: the vendored checkpoints are orbax
-directories that only the JAX package reads, so on a machine without JAX
-the port runs seeded weights.
+No code here reads ``ckpts/``: ``compat/ocdbt.py`` reads the vendored
+orbax directories without JAX, and ``train/checkpoint.py``'s loaders
+pass their trees here.
 """
 
 from __future__ import annotations

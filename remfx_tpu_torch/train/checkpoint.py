@@ -16,8 +16,12 @@ counters). A save replaces the live directory through ``name.tmp`` and
 ``name.old`` renames, so a crash never leaves ``name`` half written; the
 ``.tmp`` directory is itself renamed into place only once complete.
 
-Reading the JAX package's orbax checkpoints waits for ROADMAP.md §A2; the
-vendored ``ckpts/`` reach the port through ``compat/from_jax.py``.
+The JAX package's orbax checkpoints (the vendored ``ckpts/`` and its
+training runs) are read without JAX by ``compat/ocdbt.py``:
+``restore_tree`` gives a directory's raw tree; ``load_trained_wrapper``
+and ``load_trained_classifier`` build the vendored models with their
+weights carried over by ``compat/from_jax.py``; ``warm_start`` also takes
+an orbax directory as its donor.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import shutil
 from pathlib import Path
 
 import torch
+
+from remfx_tpu_torch.compat import from_jax, ocdbt
 
 STATE_FILE = "state.pt"
 
@@ -138,11 +144,108 @@ def restore_from(path: str, state):
     return state
 
 
+def restore_tree(path) -> dict:
+    """The raw tree of the JAX package's orbax checkpoint directory
+    ``path`` (numpy leaves; bfloat16 as ``ocdbt.Bfloat16Bits``)."""
+    return ocdbt.restore_tree(Path(path))
+
+
+def jax_variables(raw: dict) -> dict:
+    """``params`` (bfloat16 upcast to fp32, as the JAX loaders do) and, where
+    the checkpoint has them, ``batch_stats`` of a restored tree."""
+    variables = {"params": _map_leaves(ocdbt.upcast_bfloat16, raw["params"])}
+    if raw.get("batch_stats") is not None:
+        variables["batch_stats"] = raw["batch_stats"]
+    return variables
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def state_dict_from_jax(model: torch.nn.Module, variables: dict) -> dict:
+    """A JAX variables tree -> ``model``'s state dict, through the bridge of
+    ``compat/from_jax.py`` that matches the model (a removal model's
+    ``ModelWrapper`` takes its module's, under ``module.``)."""
+    from remfx_tpu_torch.models import TCN, Cnn14, DCUNet, HDemucs, ModelWrapper
+
+    inner = model.module if isinstance(model, ModelWrapper) else model
+    bridges = ((TCN, from_jax.tcn_state_dict), (HDemucs, from_jax.demucs_state_dict),
+               (DCUNet, from_jax.dcunet_state_dict), (Cnn14, from_jax.cnn14_state_dict))
+    bridge = next((fn for cls, fn in bridges if isinstance(inner, cls)), None)
+    if bridge is None:
+        raise NotImplementedError(f"no weight bridge for {type(inner).__name__}")
+    sd = bridge(variables)
+    if inner is not model:
+        sd = {f"module.{k}": v for k, v in sd.items()}
+    return sd
+
+
+def _hparams(ckpt_dir: Path) -> dict:
+    return json.loads((ckpt_dir / "hparams.json").read_text())
+
+
+def load_trained_wrapper(ckpt_dir, device=None, **network_overrides):
+    """A vendored trained removal checkpoint (``hparams.json`` and either
+    a params-only ``variables/`` orbax directory or a full TrainState in
+    ``best/``, of which only ``params`` and ``batch_stats`` are taken) ->
+    ``(effect, wrapper)``, the wrapper on ``device`` (the card unless
+    given) with the checkpoint's weights. Counterpart of
+    ``remfx_tpu/train/checkpoint.py:load_trained_wrapper``;
+    ``network_overrides`` change the network config of ``hparams.json``.
+    A model the port lacks raises ``make_model``'s NotImplementedError."""
+    from remfx_tpu_torch.models import make_model
+
+    d = Path(ckpt_dir)
+    hp = _hparams(d)
+    effects = hp.get("effects_to_remove") or []
+    if len(effects) != 1:
+        raise ValueError(f"expected single-effect ckpt, got {effects}")
+    m = hp["model"]
+    net_cfg = {**m.get("network", {}), **network_overrides}
+    wrapper = make_model(m["name"], sample_rate=hp["sample_rate"], device=device,
+                         **net_cfg)
+    src = d / "variables" if (d / "variables").is_dir() else d / "best"
+    variables = jax_variables(restore_tree(src))
+    wrapper.load_state_dict(state_dict_from_jax(wrapper, variables), strict=True)
+    return effects[0], wrapper.eval()
+
+
+def load_trained_classifier(ckpt_dir, device=None, **network_overrides):
+    """A vendored trained classifier checkpoint (``task: classifier`` in
+    its ``hparams.json``, weights in ``variables/``) -> the port's Cnn14 on
+    ``device`` with its weights. Counterpart of
+    ``remfx_tpu/train/checkpoint.py:load_trained_classifier``."""
+    from remfx_tpu_torch.models import make_cnn14
+
+    d = Path(ckpt_dir)
+    hp = _hparams(d)
+    m = hp["model"]
+    if m.get("task") != "classifier":
+        raise ValueError(f"not a classifier ckpt: {ckpt_dir}")
+    net_cfg = {**m.get("network", {}), **network_overrides}
+    net = make_cnn14(num_classes=hp.get("num_classes", 5),
+                     sample_rate=hp["sample_rate"], device=device, **net_cfg)
+    variables = jax_variables(restore_tree(d / "variables"))
+    net.load_state_dict(state_dict_from_jax(net, variables), strict=True)
+    return net.eval()
+
+
 def warm_start(path: str, state):
-    """Fine-tuning init from a port checkpoint: the donor's parameters and
+    """Fine-tuning init from a donor checkpoint: the donor's parameters and
     buffers (BatchNorm statistics) in ``state``'s dtypes, with the
-    optimizer, the schedule and the counters left fresh."""
-    donor = read_state(path, next(state.model.parameters()).device)["model"]
+    optimizer, the schedule and the counters left fresh. The donor is a
+    port checkpoint directory (``state.pt``) or an orbax directory of the
+    JAX package (``_METADATA``: a run's ``best``/``last`` or a vendored
+    ``variables``), whose ``params`` and ``batch_stats`` are carried over
+    by ``compat/from_jax.py``."""
+    device = next(state.model.parameters()).device
+    if (Path(path) / "_METADATA").is_file():
+        donor = state_dict_from_jax(state.model, jax_variables(restore_tree(path)))
+    else:
+        donor = read_state(path, device)["model"]
     own = state.model.state_dict()
     state.model.load_state_dict(
         {k: v.to(own[k].dtype) for k, v in donor.items()}, strict=True)

@@ -1,5 +1,7 @@
 """The port stands alone: importing it (and chip_smoke) loads no JAX, and
-no file of it imports jax, flax or the JAX package."""
+no file of it imports jax, flax, the JAX package, or the orbax,
+tensorstore and zstandard that the JAX package's checkpoints are read
+with elsewhere."""
 
 import re
 import subprocess
@@ -16,7 +18,12 @@ TRAINING_PATH = (
     "train.checkpoint", "train.loggers", "train.loop", "train.metrics",
     "train.tasks", "utils.heartbeat", "utils.logging", "utils.timing",
 )
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|remfx_tpu)\b")
+CHAIN_PATH = (
+    "compat.ocdbt", "chain.build", "chain.stream", "cli", "cli.demo_detect",
+    "cli.remfx_detect", "cli.chain_inference",
+)
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|remfx_tpu|orbax|tensorstore|zstandard)\b")
 
 
 def _sources():
@@ -31,8 +38,8 @@ def test_import_leaves_jax_out():
         "remfx_tpu_torch.__path__, 'remfx_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
-        "('jax.', 'flax', 'remfx_tpu.')) or m == 'remfx_tpu')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ("
+        "'jax', 'flax', 'remfx_tpu', 'orbax', 'tensorstore', 'zstandard'))\n"
         "assert not bad, bad\n"
         "print(' '.join(names))\n"
     )
@@ -43,8 +50,8 @@ def test_import_leaves_jax_out():
     assert out.returncode == 0, out.stderr
     # every module of the port was imported, the training path's too
     names = set(out.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 45
-    assert {f"remfx_tpu_torch.{m}" for m in TRAINING_PATH} <= names
+    assert len(names) >= 52
+    assert {f"remfx_tpu_torch.{m}" for m in TRAINING_PATH + CHAIN_PATH} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -62,3 +69,5 @@ def test_scan_pattern_spares_the_port_itself():
     assert not _FORBIDDEN.match("from remfx_tpu_torch.ops import envelope")
     assert _FORBIDDEN.match("from remfx_tpu.ops import stft")
     assert _FORBIDDEN.match("import jax.numpy as jnp")
+    assert _FORBIDDEN.match("import orbax.checkpoint as ocp")
+    assert _FORBIDDEN.match("import tensorstore as ts")
