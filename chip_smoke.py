@@ -28,8 +28,9 @@ sub-batch and a dense stage; all three bit for bit with every label on),
 test_step (the chain's loss and metrics against the dry clips), and
 cpu_vs_card (clip 0 on the CPU with the same weights: the classifier and
 HDemucs at full width, the five-slot chain and test_step on its first
-65536 samples), train and train_cls and trained (below). Then the kernel
-summary line, and the result line last.
+65536 samples), train and train_cls, trained, torch_import, umx, dptnet
+and train_default (below). Then the kernel summary line, and the result
+line last.
 
 The kernels phase holds the envelope's split kernel (the main path's)
 bit for bit to the serial kernel, on the demo batch and on an adversarial
@@ -38,8 +39,10 @@ row with cte_at = 0, and the corners of the attack and release ranges),
 and reports both kernels' times, how many chunks the split kernel's
 repair pass reran, and how many device kernels one call of it runs (from
 a torch.profiler trace). The kernels line gives the envelope's launches
-on both paths: the render of the detect->remove path and the synthesis
-path (the compressor; redraws and the limiter would add more).
+on each path: the render of the detect->remove path, the synthesis path
+(the compressor; redraws and the limiter would add more), the training
+runs, and none on the trained, stream, torch_import, umx and dptnet
+paths, which render nothing.
 
 Then the training path (the port's counterpart of the JAX package's
 scripts/train.py), through fit / test of remfx_tpu_torch.train:
@@ -81,6 +84,32 @@ scripts/demo_detect.py and scripts/remfx_detect.py), with no JAX:
   16384): audio seconds per wall second, the labels equal to detect on
   the loudest window, and one window equal to chain.remove bit for bit.
 
+Then the last two removal backbones and the reference's torch files:
+
+- torch_import: the trained chain's models written as .ckpt files in the
+  reference's Lightning layout ("model.model." + the network's names, the
+  classifier under "network."), imported by compat/torch_import.py, and
+  demo_detect's chain built again by build_chain from those files and
+  the vendored models' configs: its labels and removal of the demo clip
+  equal the trained chain's bit for bit; the import seconds per file.
+- umx: ckpts/umx_reverb_synth through the port's reader with the Wiener
+  EM post-filter (niter=1) on 4 x 65536 synthetic chunks reverbed with
+  the checkpoint's ranges: output SI-SDR above the input's, card against
+  CPU on one row within 1e-5 of the peak (and the same with TF32 on, for
+  comparison), sample_ms, peak memory.
+- dptnet: DPTNet at the dptnet model config's full width (chunk 100, 2
+  repeats, 4 heads, kernel 16, stride 8) with seeded weights: sample on
+  the 8 demo clips x 262144 (32767 frames in 658 chunks), with the
+  attention and softmax kernels one sample runs (torch.profiler), card
+  against CPU on 16384 samples within 1e-5 of the peak (and with TF32
+  on, for comparison), and 3 RemovalTask steps on 2 x 262144 whose loss
+  must fall.
+- train_default: +exp=default (UMX, 0-5 removed effects in the
+  reference's order) through fit on the dynamic synthetic dataset at 16 x
+  262144, 2 steps and one batch each of validation and test; the
+  envelope's launches against the renders that drew the compressor;
+  then 2 timed render + train steps.
+
 Usage: python3 chip_smoke.py [--seed N]
 Needs one CUDA device: with none it exits non-zero and prints no result.
 """
@@ -88,10 +117,12 @@ Needs one CUDA device: with none it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import csv
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -108,17 +139,21 @@ from remfx_tpu_torch.chain.build import build_chain
 from remfx_tpu_torch.chain.inference import ChainInference
 from remfx_tpu_torch.chain.stream import _windows, stream_chain
 from remfx_tpu_torch.cli.demo_detect import detect_remove, trained_cfg
-from remfx_tpu_torch.compat import ocdbt
+from remfx_tpu_torch.compat import ocdbt, torch_import
 from remfx_tpu_torch.config.core import default_config, parse_cli
+from remfx_tpu_torch.config.experiments import MODEL_CONFIGS
+from remfx_tpu_torch.data.sources import synthetic_chunk
 from remfx_tpu_torch.data.wav import read_wav
 from remfx_tpu_torch.fx import compressor, make_effect
-from remfx_tpu_torch.models import make_cnn14, make_dcunet, make_demucs, make_tcn
+from remfx_tpu_torch.losses import si_sdr
+from remfx_tpu_torch.models import (make_cnn14, make_dcunet, make_demucs, make_model,
+                                    make_tcn)
 from remfx_tpu_torch.models.wrappers import ModelWrapper
 from remfx_tpu_torch.ops import _build
 from remfx_tpu_torch.ops.envelope import (envelope, envelope_flags,
                                           envelope_plain, envelope_serial)
 from remfx_tpu_torch.ops.loudness import integrated_loudness, loudness_normalize
-from remfx_tpu_torch.train.checkpoint import (find_latest_run, load_trained_classifier,
+from remfx_tpu_torch.train.checkpoint import (find_latest_run, load_trained_wrapper,
                                               read_state, restore_from, restore_tree)
 from remfx_tpu_torch.train.loop import build_datamodule, build_task, fit, test
 from remfx_tpu_torch.train.tasks import RemovalTask
@@ -646,16 +681,19 @@ def csv_rows(logs: Path) -> list:
     return rows
 
 
-def envelope_device_kernels(fn, names) -> int:
-    """Device kernels of the envelope (by the kernels phase's names) in a
-    torch.profiler trace of the card (only) over one call of ``fn``."""
+def device_kernel_counts(fn) -> collections.Counter:
+    """Launches of each device kernel, by name, in a torch.profiler trace
+    of the card only over one call of ``fn`` (a trace of the host ops too
+    takes seconds to read back at thousands of launches; a trace of the
+    card only can miss the call's first kernel, so the envelope's are
+    counted after a render)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.key in set(names))
+    return collections.Counter({e.key: e.count for e in prof.key_averages()
+                                if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
 def cpu_train_step(task, batch) -> dict:
@@ -769,8 +807,9 @@ def train_phase(seed: int, logs: Path, env_names) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(per_step == [1] * TIMED_STEPS, f"one envelope launch per training step: {per_step}")
     fixed = ds.get_batch(np.arange(TRAIN_B))
-    env_kernels = envelope_device_kernels(
-        lambda: task.train_step(tstate, ds.get_batch(np.arange(TRAIN_B))[:2]), env_names)
+    counts = device_kernel_counts(
+        lambda: task.train_step(tstate, ds.get_batch(np.arange(TRAIN_B))[:2]))
+    env_kernels = sum(counts[n] for n in set(env_names))
     check(env_kernels == len(env_names),
           f"a traced render + step runs one envelope call's device kernels: {env_kernels}")
 
@@ -866,12 +905,13 @@ def trained_dirs(root: Path = ROOT) -> tuple[tuple, tuple]:
             TRAINED_SLOTS + (COMPRESSOR_SLOT,) * with_compressor)
 
 
-def trained_phase(dev) -> dict:
+def trained_phase(dev):
     """demo_detect's chain (the port's reader and build_chain, the
     vendored map restricted to the directories present) on the card:
     detect -> remove of the synthetic distortion + reverb clip at 262144
     samples against its dry target, the labels and the removal against
-    the CPU, then stream_chain over four clips joined end to end."""
+    the CPU, then stream_chain over four clips joined end to end.
+    -> (the phase's line, the chain, its config)."""
     dirs, slots = trained_dirs()
     libzstd = ocdbt.libzstd()._name
     read_s = {}
@@ -967,7 +1007,287 @@ def trained_phase(dev) -> dict:
                        "seconds": stream_s, "audio_s": audio_s,
                        "audio_s_per_s": audio_s / stream_s,
                        "envelope_launches": stream_launches,
-                       "one_window_bit_equal": True}}
+                       "one_window_bit_equal": True}}, chain, cfg
+
+
+# ------------------------------------------------ UMX, DPTNet and .ckpt files
+
+UMX_DIR = "umx_reverb_synth"
+UMX_B, UMX_T = 4, 65536  # tests/test_trained_ckpt.py's batch: the training chunk
+DPT_TRAIN_B = 2  # DPTNet samples the demo batch and trains on two rows
+DPT_CPU_T = 16384
+DPT_STEPS = 3  # steps on one fixed batch, whose loss must fall
+# card vs CPU for UMX and DPTNet, x peak: fp32 rounding is ~5e-7 there,
+# TF32 in their matmuls or LSTMs ~1e-3 (each phase reports both readings)
+BACKBONE_CPU_TOL = 1e-5
+DEFAULT_ARGS = ["+exp=default", "datamodule.synthetic=true",
+                "datamodule.dataset_type=dynamic"]
+DEFAULT_STEPS = 2  # fit's steps; then DEFAULT_STEPS timed steps
+COMPRESSOR = ALL_EFFECTS.index("compressor")
+
+
+def umx_phase(seed: int, dev) -> dict:
+    """ckpts/umx_reverb_synth through the port's orbax reader with the
+    Wiener EM post-filter (niter=1): dereverb 4 x 65536 synthetic chunks
+    rendered with the checkpoint's reverb ranges, as
+    tests/test_trained_ckpt.py does; card against CPU on one row."""
+    d = ROOT / "ckpts" / UMX_DIR
+    check((d / "hparams.json").is_file() and (d / "variables").is_dir(),
+          f"ckpts/{UMX_DIR} is in the checkout")
+    t0 = time.perf_counter()
+    effect, umx = load_trained_wrapper(d, device=dev, niter=1)
+    load_s = time.perf_counter() - t0
+    check(effect == "reverb" and umx.module.niter == 1, "the trained UMX, niter=1")
+    hp = json.loads((d / "hparams.json").read_text())
+    renderer = EffectChainRenderer(SR, effects_to_remove=("reverb",),
+                                   num_removed_effects=(1, 1),
+                                   effect_overrides=hp["effects"], device=dev)
+    rng = np.random.default_rng(seed + 1)
+    clean = np.stack([synthetic_chunk(rng, UMX_T, SR) for _ in range(UMX_B)])
+    dry, wet, _, _ = renderer.render_batch(torch.Generator().manual_seed(seed + 5),
+                                           torch.from_numpy(clean).to(dev))
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the UMX path: counts at 0 just before, read just after ----
+    envelope.launches = 0
+    out = umx.sample(wet)
+    torch.cuda.synchronize()
+    launches = envelope.launches
+    # ---- end of the path ----
+    check(out.shape == wet.shape and bool(torch.isfinite(out).all()),
+          f"UMX output finite, {tuple(wet.shape)}")
+    in_sisdr = si_sdr(wet, dry).mean().item()
+    out_sisdr = si_sdr(out, dry).mean().item()
+    check(out_sisdr > in_sisdr, f"the trained UMX dereverbs: {out_sisdr} <= {in_sisdr}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cpu = copy.deepcopy(umx).cpu().sample(wet[:1].cpu())
+    cpu_rel = max_rel(out[:1], cpu)
+    check(cpu_rel <= BACKBONE_CPU_TOL, f"UMX card vs CPU {cpu_rel} <= {BACKBONE_CPU_TOL}")
+    with tf32():
+        tf32_rel = max_rel(umx.sample(wet[:1]), cpu)
+    return {"ckpt": UMX_DIR, "effect": effect, "niter": 1, "batch": UMX_B,
+            "samples": UMX_T, "load_s": load_s, "envelope_launches": launches,
+            "input_si_sdr_db": in_sisdr, "output_si_sdr_db": out_sisdr,
+            "cpu_rows": 1, "cpu_max_rel_err": cpu_rel, "cpu_tol": BACKBONE_CPU_TOL,
+            "tf32_cpu_max_rel_err": tf32_rel,
+            "sample_ms": wall_ms(lambda: umx.sample(wet)), "peak_allocated_gib": peak}
+
+
+def dptnet_phase(seed: int, clips: torch.Tensor) -> dict:
+    """DPTNet at the dptnet model config's full width with seeded weights:
+    sample on the 8 demo clips x 262144, card against CPU on 16384
+    samples, then RemovalTask steps on 2 x 262144 (a tanh distortion to
+    remove), whose loss must fall over 3 steps on one batch."""
+    dev = clips.device
+    net = MODEL_CONFIGS["dptnet"]["network"]
+    torch.manual_seed(seed)
+    dpt = make_model("dptnet", sample_rate=SR, device=dev, **net)
+    x = clips[:, None, :]
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the DPTNet path: counts at 0 just before, read just after ----
+    envelope.launches = 0
+    y = dpt.sample(x)
+    torch.cuda.synchronize()
+    launches = envelope.launches
+    # ---- end of the path ----
+    check(y.shape == x.shape and bool(torch.isfinite(y).all()),
+          f"DPTNet output finite, {tuple(x.shape)}")
+    sample_peak = torch.cuda.max_memory_allocated() / 2**30
+    sample_ms = wall_ms(lambda: dpt.sample(x))
+    kernels = device_kernel_counts(lambda: dpt.sample(x))
+    x0 = x[:1, :, :DPT_CPU_T].contiguous()
+    cpu = copy.deepcopy(dpt).cpu().sample(x0.cpu())
+    cpu_rel = max_rel(dpt.sample(x0), cpu)
+    check(cpu_rel <= BACKBONE_CPU_TOL,
+          f"DPTNet card vs CPU {cpu_rel} <= {BACKBONE_CPU_TOL}")
+    with tf32():
+        tf32_rel = max_rel(dpt.sample(x0), cpu)
+
+    task = RemovalTask(dpt, max_steps=100)
+    state = task.init_state()
+    target = x[:DPT_TRAIN_B]
+    batch = (torch.tanh(3.0 * target) / 3.0, target)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(DPT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = task.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        finite_metrics({k: v.item() for k, v in m.items()}, "DPTNet step")
+        losses.append(m["train_loss"].item())
+    check(losses[-1] < losses[0], f"DPTNet steps on one batch lower the loss: {losses}")
+    frames = (x.shape[-1] - net["kernel_size"]) // net["stride"] + 1
+    hop = net["chunk_size"] // 2
+    return {"network": net, "batch": x.shape[0], "samples": x.shape[-1], "frames": frames,
+            "chunks": (frames + 2 * net["chunk_size"] - net["chunk_size"]) // hop + 1,
+            "envelope_launches": launches, "sample_ms": sample_ms,
+            "sample_peak_allocated_gib": sample_peak,
+            "sample_device_kernels": sum(kernels.values()),
+            "attention_kernels": attention_kernels(kernels),
+            "sdp_enabled": {"flash": torch.backends.cuda.flash_sdp_enabled(),
+                            "mem_efficient": torch.backends.cuda.mem_efficient_sdp_enabled(),
+                            "math": torch.backends.cuda.math_sdp_enabled()},
+            "cpu_samples": DPT_CPU_T, "cpu_max_rel_err": cpu_rel,
+            "cpu_tol": BACKBONE_CPU_TOL, "tf32_cpu_max_rel_err": tf32_rel,
+            "train_batch": DPT_TRAIN_B,
+            "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+            "losses": losses, "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+@contextlib.contextmanager
+def tf32():
+    """TF32 switched on for matmuls and cuDNN, as PyTorch's defaults have
+    it for cuDNN, and back off after (resolve_device switches it off)."""
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def attention_kernels(counts: dict) -> dict:
+    """The fused-attention and softmax kernels among a trace's launches by
+    kernel name, their names cut to 100 characters: which SDPA backend
+    ran."""
+    rx = re.compile(r"fmha|flash|attention|softmax", re.IGNORECASE)
+    out = collections.Counter()
+    for name, n in counts.items():
+        if rx.search(name):
+            out[name[:100]] += n
+    return dict(out)
+
+
+@contextlib.contextmanager
+def recorded_renders():
+    """The labels (dry, wet) of every EffectChainRenderer.render_batch call
+    made inside, on the host."""
+    calls = []
+    original = EffectChainRenderer.render_batch
+
+    def recording(self, generator, x):
+        out = original(self, generator, x)
+        calls.append((out[2].cpu(), out[3].cpu()))
+        return out
+
+    EffectChainRenderer.render_batch = recording
+    try:
+        yield calls
+    finally:
+        EffectChainRenderer.render_batch = original
+
+
+def train_default_phase(seed: int, logs: Path) -> dict:
+    """python -m remfx_tpu_torch.train +exp=default (UMX, 0-5 removed
+    effects, no shuffle) on the dynamic synthetic dataset at its batch and
+    chunk (16 x 262144): fit with 2 steps and one batch each of
+    validation and test, then 2 timed render + train steps."""
+    cfg = train_cfg(DEFAULT_ARGS, seed, logs, f"trainer.max_steps={DEFAULT_STEPS}",
+                    f"datamodule.train_chunks={TRAIN_B * DEFAULT_STEPS}",
+                    "datamodule.val_chunks=1", "datamodule.test_chunks=1")
+    dm = cfg["datamodule"]
+    check(cfg["model"]["name"] == "umx" and dm["train_batch_size"] == TRAIN_B
+          and dm["test_batch_size"] == 1 and cfg["chunk_size"] == T
+          and cfg["num_removed_effects"] == [0, 5] and not cfg["shuffle_removed_effects"],
+          "+exp=default trains UMX on 0-5 effects, not shuffled, at 16 x 262144")
+    # ---- the default experiment's training path ----
+    with recorded_renders() as renders:
+        envelope.launches = 0
+        state, test_metrics = fit(cfg)
+        torch.cuda.synchronize()
+        launches = envelope.launches
+    # ---- end of the path ----
+    finite_metrics(test_metrics, "+exp=default test")
+    train_rows = [r for r in csv_rows(logs) if r.get("train_loss")]
+    check(len(train_rows) == DEFAULT_STEPS, f"{DEFAULT_STEPS} train rows logged")
+    finite_metrics({k: float(v) for r in train_rows for k, v in r.items()
+                    if k.startswith("train_") and v}, "+exp=default train")
+    with_comp = sum(bool((d[:, COMPRESSOR] + w[:, COMPRESSOR]).any()) for d, w in renders)
+    # each render with a compressor row runs the compressor once (a redraw
+    # runs it again); a render without one never launches the kernel
+    check(launches >= with_comp and (launches > 0) == (with_comp > 0),
+          f"envelope launches {launches} for {with_comp} renders with the compressor")
+
+    task = build_task(cfg)
+    tstate = task.init_state()
+    ds = build_datamodule(train_cfg(DEFAULT_ARGS, seed, logs, "render_files=false",
+                                    "datamodule.val_chunks=1",
+                                    "datamodule.test_chunks=1")).train_dataset
+    render_ms, step_ms, per_step = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(DEFAULT_STEPS):
+        before = envelope.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = ds.get_batch(np.arange(i * TRAIN_B, (i + 1) * TRAIN_B))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, m = task.train_step(tstate, (batch[0], batch[1]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        render_ms.append((t1 - t0) * 1e3)
+        per_step.append(envelope.launches - before)
+        finite_metrics({k: v.item() for k, v in m.items()}, "+exp=default timed step")
+    return {"batch": TRAIN_B, "samples": T, "fit_steps": state.step,
+            "renders": len(renders), "renders_with_compressor": with_comp,
+            "fit_envelope_launches": launches, "envelope_launches_per_step": per_step,
+            "train_loss": [float(r["train_loss"]) for r in train_rows],
+            "test_metrics": test_metrics, "step_ms": step_ms, "render_ms": render_ms,
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _vendored_model(path: str) -> dict:
+    return json.loads((ROOT / path / "hparams.json").read_text())["model"]
+
+
+def torch_import_phase(chain, cfg: dict, tmp: Path) -> dict:
+    """The trained phase's models written as .ckpt files in the reference's
+    Lightning layout, then demo_detect's chain built again by build_chain
+    from those files and the vendored models' configs: the labels and the
+    removal of the demo clip equal the trained chain's bit for bit."""
+    files, import_s = {}, {}
+    for slot, w in chain.models.items():
+        files[slot] = tmp / f"{slot}.ckpt"
+        torch.save({"state_dict": {f"model.model.{k}": v.cpu()
+                                   for k, v in w.module.state_dict().items()}}, files[slot])
+    files["classifier"] = tmp / "classifier.ckpt"
+    torch.save({"state_dict": {f"network.{k}": v.cpu()
+                               for k, v in chain.classifier.state_dict().items()}},
+               files["classifier"])
+    for name, path in files.items():
+        t0 = time.perf_counter()
+        torch_import.import_torch_checkpoint(path)
+        import_s[name] = time.perf_counter() - t0
+    ckpt_cfg = copy.deepcopy(cfg)
+    for slot, spec in ckpt_cfg["ckpts"].items():
+        ckpt_cfg["ckpts"][slot] = {"model": _vendored_model(spec["ckpt_path"]),
+                                   "ckpt_path": str(files[slot])}
+    ckpt_cfg["classifier"] = _vendored_model(cfg["classifier_ckpt"])
+    ckpt_cfg["classifier_ckpt"] = str(files["classifier"])
+    dev = next(chain.classifier.parameters()).device
+    t0 = time.perf_counter()
+    again = build_chain(ckpt_cfg, None, device=dev)
+    build_s = time.perf_counter() - t0
+    check({k: (type(m.module), m.residual) for k, m in again.models.items()}
+          == {k: (type(m.module), m.residual) for k, m in chain.models.items()},
+          "the .ckpt chain has the trained chain's slots and wrappers")
+    audio, _ = read_wav(ROOT / DEMO_IN)
+    x = torch.from_numpy(audio)[None].to(dev)
+    # ---- the .ckpt chain's path: counts at 0 just before, read just after ----
+    envelope.launches = 0
+    labels = again.detect(x)
+    y, _ = again.remove(x, labels)
+    torch.cuda.synchronize()
+    launches = envelope.launches
+    # ---- end of the path ----
+    want_labels = chain.detect(x)
+    want, _ = chain.remove(x, want_labels)
+    check(torch.equal(labels, want_labels), "the .ckpt chain's labels equal the trained chain's")
+    check(torch.equal(y, want), "the .ckpt chain's removal equals the trained chain's bit for bit")
+    return {"files": {k: p.stat().st_size for k, p in files.items()},
+            "import_s": import_s, "build_s": build_s, "envelope_launches": launches,
+            "labels": labels[0].tolist(), "bit_equal": True}
 
 
 def main(argv=None) -> int:
@@ -1075,15 +1395,35 @@ def main(argv=None) -> int:
                                     row["device_kernels"])
         ph.done("train_cls", **train_cls)
 
-    trained = trained_phase(dev)
+    trained, chain, chain_cfg = trained_phase(dev)
     ph.done("trained", **trained)
+    with tempfile.TemporaryDirectory() as tmp:
+        imported = torch_import_phase(chain, chain_cfg, Path(tmp))
+    ph.done("torch_import", **imported)
+    del chain
+    torch.cuda.empty_cache()
+
+    umx = umx_phase(args.seed, dev)
+    ph.done("umx", **umx)
+    torch.cuda.empty_cache()
+    dptnet = dptnet_phase(args.seed, clips)
+    ph.done("dptnet", **dptnet)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        default = train_default_phase(args.seed, Path(tmp) / "train_default")
+    ph.done("train_default", **default)
 
     row["launches_by_path"] = {"render_detect_remove": launches["envelope"],
                                "synth": synth["envelope_launches"],
                                "train": train["fit_envelope_launches"],
                                "train_cls": train_cls["envelope_launches"],
                                "trained": trained["envelope_launches"],
-                               "stream": trained["stream"]["envelope_launches"]}
+                               "stream": trained["stream"]["envelope_launches"],
+                               "umx": umx["envelope_launches"],
+                               "dptnet": dptnet["envelope_launches"],
+                               "train_default": default["fit_envelope_launches"],
+                               "torch_import": imported["envelope_launches"]}
+    row["launches_per_train_default_step"] = default["envelope_launches_per_step"]
     row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": [row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,12 @@ is a removal model and its weights:
   ``model`` entry says, and its effect must be the slot's;
 * any other existing directory is an orbax checkpoint of the JAX
   package, restored into the model the slot names;
-* a file is one of the reference's published torch ``.ckpt`` files,
-  which the port does not import yet (ROADMAP.md §A11);
+* a file is a torch ``.ckpt`` in the reference's layout (its published
+  checkpoints), imported by ``compat/torch_import.py`` into the model
+  that the slot's ``model`` / ``network`` config builds, which must be
+  of the file's family. The file carries no wrapper option: HDemucs'
+  residual wrapper comes from ``identity_init`` in the slot's network
+  config, as in the JAX package;
 * a missing checkpoint is an error, unless ``REMFX_ALLOW_RANDOM_CKPT=1``,
   for smoke runs that mean to use random weights.
 
@@ -32,7 +36,8 @@ import torch
 from remfx_tpu_torch import EFFECT_CLASS_NAMES
 from remfx_tpu_torch.chain.inference import DEFAULT_ORDER, ChainInference
 from remfx_tpu_torch.models import make_cnn14, make_model
-from remfx_tpu_torch.train.checkpoint import (jax_variables, load_trained_classifier,
+from remfx_tpu_torch.train.checkpoint import (jax_variables, load_torch_checkpoint,
+                                              load_trained_classifier,
                                               load_trained_wrapper, restore_tree,
                                               state_dict_from_jax)
 from remfx_tpu_torch.utils.device import resolve_device
@@ -42,14 +47,13 @@ log = get_logger(__name__)
 
 
 def _load_variables(ckpt_path: str, model: torch.nn.Module, what: str):
-    """An orbax directory's weights into ``model``; a torch ``.ckpt`` file
-    raises (ROADMAP.md §A11)."""
+    """The weights of a torch ``.ckpt`` file or an orbax directory into
+    ``model``."""
     p = Path(ckpt_path)
     if p.is_file():
-        raise NotImplementedError(
-            f"{p} is a published torch checkpoint; the port does not import "
-            "those yet (ROADMAP.md §A11, compat/torch_import.py): use the "
-            "JAX package, or a vendored ckpts/<name>/ directory")
+        kind = load_torch_checkpoint(p, model)
+        log.info("imported torch checkpoint %s (%s) for %s", p, kind, what)
+        return
     model.load_state_dict(state_dict_from_jax(model, jax_variables(restore_tree(p))),
                           strict=True)
     log.info("loaded %s from %s", what, p)

@@ -14,6 +14,11 @@ loaded with ``load_state_dict(strict=True)``.
 * ``dcunet_state_dict`` is a copy of ``torch_import.py:export_dcunet``
   (asteroid naming, ``masker.mask_bias`` included), ending in torch
   tensors, for both the ``bN`` and ``CbN`` norms.
+* ``umx_state_dict``: the JAX UMX keeps torch's names and layouts
+  (``remfx_tpu/models/umx.py``), so this is a re-rooting, with the
+  BatchNorm statistics taken from ``batch_stats``.
+* ``dptnet_state_dict`` is a copy of ``torch_import.py:export_dptnet``
+  (asteroid naming), ending in torch tensors.
 
 Layouts: flax conv ``(kh, kw, in, out)`` / ``(k, in, out)`` -> torch
 ``(out, in, kh, kw)`` / ``(out, in, k)``; Dense ``(in, out)`` -> Linear
@@ -262,3 +267,67 @@ def dcunet_state_dict(variables: dict) -> dict:
     for name in counters:
         out[f"{name}.num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def umx_state_dict(variables: dict) -> dict:
+    """UMXSeparator ``{'params', 'batch_stats'}`` -> port ``UMXSeparator``
+    state dict (the module, not its wrapper)."""
+    leaves = _Leaves(variables)
+    sd: dict = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict) or hasattr(v, "items"):
+                walk(v, path + (k,))
+            else:
+                sd[".".join(path[1:] + (k,))] = leaves.get(*path, k)
+
+    walk(leaves.subtree("params"), ("params",))
+    walk(leaves.subtree("batch_stats"), ("batch_stats",))
+    leaves.check_all_used()
+    out = _tensors(sd)
+    for bn in ("bn1", "bn2", "bn3"):
+        out[f"model.{bn}.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+_DPT_SIMPLE = {
+    "encoder_filters": "encoder.filterbank._filters",
+    "decoder_filters": "decoder.filterbank._filters",
+    "first_out_prelu": "masker.first_out.0.weight",
+    "first_out_weight": "masker.first_out.1.weight",
+    "first_out_bias": "masker.first_out.1.bias",
+    "net_out_weight": "masker.net_out.0.weight",
+    "net_out_bias": "masker.net_out.0.bias",
+    "net_gate_weight": "masker.net_gate.0.weight",
+    "net_gate_bias": "masker.net_gate.0.bias",
+}
+
+
+def dptnet_state_dict(variables: dict) -> dict:
+    """DPTNet ``{'params'}`` -> port ``DPTNet`` state dict (asteroid names;
+    the module, not its wrapper)."""
+    leaves = _Leaves(variables)
+    sd: dict = {}
+    for name, tree in leaves.subtree("params").items():
+        if name in _DPT_SIMPLE:
+            sd[_DPT_SIMPLE[name]] = leaves.get("params", name)
+        elif name == "in_norm":
+            for p in tree:
+                sd[f"masker.in_norm.{p}"] = leaves.get("params", name, p)
+        elif name.startswith("layers_"):
+            _, r, which = name.split("_")
+            base = f"masker.layers.{r}.{0 if which == 'intra' else 1}"
+            for sub, leaf in tree.items():
+                if sub == "mha":
+                    for p in leaf:
+                        tname = (f"out_proj.{p[9:]}" if p.startswith("out_proj_")
+                                 else p)
+                        sd[f"{base}.mha.{tname}"] = leaves.get("params", name, sub, p)
+                elif sub in ("recurrent", "norm_mha", "norm_ff"):
+                    for p in leaf:
+                        sd[f"{base}.{sub}.{p}"] = leaves.get("params", name, sub, p)
+                elif sub in ("linear_weight", "linear_bias"):
+                    sd[f"{base}.linear.{sub[7:]}"] = leaves.get("params", name, sub)
+    leaves.check_all_used()
+    return _tensors(sd)

@@ -3,15 +3,16 @@ configs (the cfg/exp/ + cfg/model/ surface, SURVEY.md §2.8).
 
 The port's copy of ``remfx_tpu/config/experiments.py``, equal to it but
 for ``accelerator``: the JAX package names the TPU, the port the card
-("gpu"). The removal experiments (tcn, demucs, dcunet) and the Cnn14
-classifiers build; ``umx``, ``dptnet`` and the embedding classifiers are
-named but raise ``NotImplementedError`` when built (ROADMAP.md §A10). The
-chain experiments (``chain_inference*``, ``remfx_{oracle,detect,all}``)
-build through ``chain/build.py:build_chain``; their ``ckpts/*.ckpt``
-paths are the reference's published torch checkpoints, which the port
-does not import yet (§A11), so they run with vendored ``ckpts/<name>/``
-directories in their place (``cli/demo_detect.py``) or, for smoke runs,
-with ``REMFX_ALLOW_RANDOM_CKPT=1``.
+("gpu"). Every removal experiment (tcn, demucs, dcunet, umx, dptnet;
+``default`` is UMX) and the Cnn14 classifiers build; the embedding
+classifiers are named but raise ``NotImplementedError`` when built
+(ROADMAP.md §A10). The chain experiments (``chain_inference*``,
+``remfx_{oracle,detect,all}``) build through
+``chain/build.py:build_chain``; their ``ckpts/*.ckpt`` paths are the
+reference's published torch checkpoints, which ``compat/torch_import.py``
+imports where the files are present; without them, vendored
+``ckpts/<name>/`` directories take their place (``cli/demo_detect.py``)
+or, for smoke runs, ``REMFX_ALLOW_RANDOM_CKPT=1`` gives random weights.
 
 Model families: dcunet (chorus/delay/reverb removal), demucs
 (distortion/compression removal), umx, dptnet, tcn, and the Cnn14

@@ -14,7 +14,9 @@ import logging
 from remfx_tpu_torch.models.cnn14 import Cnn14
 from remfx_tpu_torch.models.dcunet import DCUNet
 from remfx_tpu_torch.models.demucs import HDemucs
+from remfx_tpu_torch.models.dptnet import DPTNet
 from remfx_tpu_torch.models.tcn import TCN
+from remfx_tpu_torch.models.umx import UMXSeparator
 from remfx_tpu_torch.models.wrappers import ModelWrapper
 from remfx_tpu_torch.utils.device import resolve_device
 
@@ -83,9 +85,35 @@ def make_cnn14(
     return net.to(resolve_device(device)).eval()
 
 
-def make_umx(**_kwargs):
-    raise NotImplementedError(
-        "UMX is not ported yet (ROADMAP.md §A10); use the JAX package")
+def make_umx(
+    sample_rate=48000,
+    n_fft=2048,
+    hop_length=512,
+    n_channels=1,
+    alpha=0.3,
+    hidden_size=512,
+    niter=0,
+    softmask=False,
+    residual=False,
+    wiener_win_len=300,
+    identity_init=False,
+    device=None,
+    **_ignored,
+) -> ModelWrapper:
+    """``alpha`` is a key of the reference's config that its model never
+    reads; it is accepted and unused, as in the JAX package."""
+    module = UMXSeparator(
+        n_fft=n_fft,
+        hop_length=hop_length,
+        nb_channels=n_channels,
+        hidden_size=hidden_size,
+        niter=niter,
+        softmask=softmask,
+        residual=residual,
+        wiener_win_len=wiener_win_len,
+        identity_init=identity_init,
+    )
+    return ModelWrapper(module, name="umx").to(resolve_device(device)).eval()
 
 
 def make_dcunet(
@@ -111,9 +139,32 @@ def make_dcunet(
     return ModelWrapper(module, name="dcunet").to(resolve_device(device)).eval()
 
 
-def make_dptnet(**_kwargs):
-    raise NotImplementedError(
-        "DPTNet is not ported yet (ROADMAP.md §A10); use the JAX package")
+def make_dptnet(
+    sample_rate=48000,
+    n_src=1,
+    in_chan=64,
+    out_chan=64,
+    chunk_size=100,
+    n_repeats=2,
+    fb_name="free",
+    kernel_size=16,
+    n_filters=64,
+    stride=8,
+    num_bins=1025,
+    device=None,
+    **_ignored,
+) -> ModelWrapper:
+    module = DPTNet(
+        n_src=n_src,
+        in_chan=in_chan,
+        out_chan=out_chan,
+        chunk_size=chunk_size,
+        n_repeats=n_repeats,
+        kernel_size=kernel_size,
+        n_filters=n_filters,
+        stride=stride,
+    )
+    return ModelWrapper(module, name="dptnet").to(resolve_device(device)).eval()
 
 
 def make_demucs(
@@ -168,6 +219,7 @@ def make_model(name: str, **kwargs) -> ModelWrapper:
     return fn(**kwargs)
 
 
-__all__ = ["TCN", "Cnn14", "DCUNet", "HDemucs", "ModelWrapper", "make_model",
-           "make_cnn14", "make_dcunet", "make_demucs", "make_tcn",
+__all__ = ["TCN", "Cnn14", "DCUNet", "DPTNet", "HDemucs", "ModelWrapper",
+           "UMXSeparator", "make_model", "make_cnn14", "make_dcunet",
+           "make_demucs", "make_dptnet", "make_tcn", "make_umx",
            "MODEL_REGISTRY"]

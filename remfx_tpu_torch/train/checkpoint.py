@@ -21,7 +21,8 @@ training runs) are read without JAX by ``compat/ocdbt.py``:
 ``restore_tree`` gives a directory's raw tree; ``load_trained_wrapper``
 and ``load_trained_classifier`` build the vendored models with their
 weights carried over by ``compat/from_jax.py``; ``warm_start`` also takes
-an orbax directory as its donor.
+an orbax directory as its donor. The reference's torch ``.ckpt`` files are
+read by ``compat/torch_import.py`` and loaded by ``load_torch_checkpoint``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from pathlib import Path
 
 import torch
 
-from remfx_tpu_torch.compat import from_jax, ocdbt
+from remfx_tpu_torch.compat import from_jax, ocdbt, torch_import
 
 STATE_FILE = "state.pt"
 
@@ -165,22 +166,62 @@ def _map_leaves(fn, tree):
     return fn(tree)
 
 
+def _family(net: torch.nn.Module):
+    """``(family, bridge)`` of a port network (a wrapper's module, or
+    Cnn14): its torch checkpoint family (``compat/torch_import.py``) and
+    its JAX weight bridge (``compat/from_jax.py``)."""
+    from remfx_tpu_torch.models import TCN, Cnn14, DCUNet, DPTNet, HDemucs, UMXSeparator
+
+    families = ((TCN, "tcn", from_jax.tcn_state_dict),
+                (HDemucs, "demucs", from_jax.demucs_state_dict),
+                (DCUNet, "dcunet", from_jax.dcunet_state_dict),
+                (Cnn14, "cnn14", from_jax.cnn14_state_dict),
+                (UMXSeparator, "umx", from_jax.umx_state_dict),
+                (DPTNet, "dptnet", from_jax.dptnet_state_dict))
+    for cls, kind, bridge in families:
+        if isinstance(net, cls):
+            return kind, bridge
+    raise NotImplementedError(f"no weight bridge for {type(net).__name__}")
+
+
+def _network(model: torch.nn.Module) -> torch.nn.Module:
+    from remfx_tpu_torch.models import ModelWrapper
+
+    return model.module if isinstance(model, ModelWrapper) else model
+
+
 def state_dict_from_jax(model: torch.nn.Module, variables: dict) -> dict:
     """A JAX variables tree -> ``model``'s state dict, through the bridge of
     ``compat/from_jax.py`` that matches the model (a removal model's
     ``ModelWrapper`` takes its module's, under ``module.``)."""
-    from remfx_tpu_torch.models import TCN, Cnn14, DCUNet, HDemucs, ModelWrapper
-
-    inner = model.module if isinstance(model, ModelWrapper) else model
-    bridges = ((TCN, from_jax.tcn_state_dict), (HDemucs, from_jax.demucs_state_dict),
-               (DCUNet, from_jax.dcunet_state_dict), (Cnn14, from_jax.cnn14_state_dict))
-    bridge = next((fn for cls, fn in bridges if isinstance(inner, cls)), None)
-    if bridge is None:
-        raise NotImplementedError(f"no weight bridge for {type(inner).__name__}")
-    sd = bridge(variables)
+    inner = _network(model)
+    sd = _family(inner)[1](variables)
     if inner is not model:
         sd = {f"module.{k}": v for k, v in sd.items()}
     return sd
+
+
+def load_torch_checkpoint(path, model: torch.nn.Module) -> str:
+    """The weights of the torch ``.ckpt`` file ``path`` (imported by
+    ``compat/torch_import.py``) into ``model`` (a ``ModelWrapper`` or
+    Cnn14), whose family the file must hold; a DCUNet's norm must be the
+    file's too. BatchNorm counters the file lacks start at 0; anything
+    else missing or extra raises (``strict=True``). Returns the family."""
+    net = _network(model)
+    want = _family(net)[0]
+    kind, sd = torch_import.import_torch_checkpoint(path)
+    if kind != want:
+        raise ValueError(f"{Path(path)} holds a {kind} checkpoint; the model is {want}")
+    own = net.state_dict()
+    norm = torch_import.detect_dcunet_norm_type
+    if kind == "dcunet" and norm(sd) != norm(own):
+        raise ValueError(f"{Path(path)} holds a DCUNet with norm_type {norm(sd)!r}; "
+                         f"the model has {norm(own)!r}")
+    for k, v in own.items():
+        if k.endswith("num_batches_tracked") and k not in sd:
+            sd[k] = torch.zeros_like(v)
+    net.load_state_dict(sd, strict=True)
+    return kind
 
 
 def _hparams(ckpt_dir: Path) -> dict:
@@ -194,8 +235,8 @@ def load_trained_wrapper(ckpt_dir, device=None, **network_overrides):
     ``(effect, wrapper)``, the wrapper on ``device`` (the card unless
     given) with the checkpoint's weights. Counterpart of
     ``remfx_tpu/train/checkpoint.py:load_trained_wrapper``;
-    ``network_overrides`` change the network config of ``hparams.json``.
-    A model the port lacks raises ``make_model``'s NotImplementedError."""
+    ``network_overrides`` change the network config of ``hparams.json``
+    (e.g. ``niter=1``, the Wiener EM post-filter of the trained UMX)."""
     from remfx_tpu_torch.models import make_model
 
     d = Path(ckpt_dir)

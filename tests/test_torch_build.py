@@ -6,7 +6,7 @@ gives the labels of JAX's ``build_chain`` and its removal to 1e-4 x the
 RMS of the JAX output, at 16384 samples of two demo clips. Its rules: a
 missing ckpt raises unless ``REMFX_ALLOW_RANDOM_CKPT=1``, which draws
 reproducible seeded weights; a vendored ckpt of another effect raises; a
-torch ``.ckpt`` file raises, naming ROADMAP.md; an orbax directory without
+file that is no torch checkpoint raises, naming it; an orbax directory without
 ``hparams.json`` is restored into the slot's model. The trained loaders
 equal ``compat/from_jax.py`` fed by the JAX loaders, bit for bit, and
 ``warm_start`` takes an orbax donor.
@@ -120,13 +120,16 @@ def test_vendored_ckpt_of_another_effect_raises(in_repo):
 
 @pytest.mark.parametrize("slot", ["RandomPedalboardDistortion", "classifier"])
 def test_torch_ckpt_file_names_roadmap(in_repo, tmp_path, slot):
+    """A torch ``.ckpt`` file is imported now (ROADMAP.md §A11,
+    compat/torch_import.py; tests/test_torch_import.py): one that is no
+    torch checkpoint raises, naming the file."""
     f = tmp_path / "demucs_distortion_aug.ckpt"
     f.write_bytes(b"not read")
     if slot == "classifier":
         cfg = parse_cli(["+exp=remfx_detect", "ckpts={}", f"classifier_ckpt={f}"])
     else:
         cfg = _tiny_cfg(RandomPedalboardDistortion=str(f))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A11"):
+    with pytest.raises(ValueError, match="demucs_distortion_aug.ckpt: not a checkpoint"):
         build_chain(cfg, None, device="cpu")
 
 
@@ -204,9 +207,12 @@ def test_loaders_check_what_the_jax_loaders_assert(tmp_path):
 
 
 def test_model_the_port_lacks_raises_but_its_tree_reads():
+    """ckpts/umx_reverb_synth, whose model the port once lacked: its tree
+    reads, and with UMX ported (tests/test_torch_umx.py holds it against
+    JAX) the loader builds it."""
     d = ROOT / "ckpts" / "umx_reverb_synth"
-    with pytest.raises(NotImplementedError, match=r"§A10"):
-        load_trained_wrapper(d, device="cpu")
+    effect, wrapper = load_trained_wrapper(d, device="cpu")
+    assert effect == "reverb" and type(wrapper.module).__name__ == "UMXSeparator"
     assert restore_tree(d / "variables")["params"]
 
 

@@ -17,6 +17,9 @@ package's scripts, on the CPU (``accelerator=cpu``).
 * ``chip_smoke.trained_dirs``: the slots it expects are demo_detect's map
   both in a full checkout (HDemucs' ckpt present) and in the copy that
   ``.chiprunignore`` trims (no HDemucs); a missing admitted ckpt fails.
+* ``chip_smoke.attention_kernels`` picks the fused-attention or softmax
+  kernels out of a trace's names, and ``chip_smoke.tf32`` switches TF32
+  on and back.
 """
 
 import copy
@@ -162,3 +165,38 @@ def test_chip_smoke_trained_slots_follow_demo_detect(monkeypatch, tmp_path,
     (tmp_path / "ckpts" / "dcunet_delay_aug_r5" / "hparams.json").unlink()
     with pytest.raises(RuntimeError, match="dcunet_delay_aug_r5"):
         chip_smoke.trained_dirs(tmp_path)
+
+
+MEM_EFFICIENT = "fmha_cutlassF_f32_aligned_64x64_rf_sm80(PyTorchMemEffAttention::AttentionKernel)"
+
+
+@pytest.mark.parametrize("counts, want", [
+    ({MEM_EFFICIENT: 4, "ampere_sgemm_128x64_nn": 8, "elementwise_kernel": 30},
+     {MEM_EFFICIENT: 4}),
+    ({"void flash_fwd_kernel<Flash_fwd_kernel_traits>(Flash_fwd_params)": 2, "gemm": 1},
+     {"void flash_fwd_kernel<Flash_fwd_kernel_traits>(Flash_fwd_params)": 2}),
+    ({"ampere_sgemm_128x64_tn": 4, "void softmax_warp_forward<float>(float*)": 4},
+     {"void softmax_warp_forward<float>(float*)": 4}),
+    ({"x" * 150 + "_fmha_a": 1, "x" * 150 + "_fmha_b": 2}, {"x" * 100: 3}),
+], ids=["mem_efficient", "flash", "math", "name_cut"])
+def test_chip_smoke_attention_kernels_name_the_backend(counts, want):
+    """The dptnet phase reports which attention backend its sample ran:
+    the fused kernels by name, or the math path's softmax."""
+    import chip_smoke
+
+    assert chip_smoke.attention_kernels(counts) == want
+
+
+def test_chip_smoke_tf32_switches_back():
+    import chip_smoke
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with chip_smoke.tf32():
+            assert torch.backends.cuda.matmul.allow_tf32
+            assert torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags

@@ -22,6 +22,9 @@ CHAIN_PATH = (
     "compat.ocdbt", "chain.build", "chain.stream", "cli", "cli.demo_detect",
     "cli.remfx_detect", "cli.chain_inference",
 )
+BACKBONE_PATH = (
+    "models.umx", "models.dptnet", "ops.wiener", "compat.torch_import",
+)
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|flax|remfx_tpu|orbax|tensorstore|zstandard)\b")
 
@@ -50,8 +53,9 @@ def test_import_leaves_jax_out():
     assert out.returncode == 0, out.stderr
     # every module of the port was imported, the training path's too
     names = set(out.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 52
-    assert {f"remfx_tpu_torch.{m}" for m in TRAINING_PATH + CHAIN_PATH} <= names
+    assert len(names) >= 56
+    assert {f"remfx_tpu_torch.{m}"
+            for m in TRAINING_PATH + CHAIN_PATH + BACKBONE_PATH} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

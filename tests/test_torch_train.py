@@ -464,9 +464,16 @@ def test_parse_cli_equals_the_jax_cli():
 
 @pytest.mark.parametrize("model", ["umx", "dptnet", "cls_panns_pt"])
 def test_unported_models_raise(model):
+    """The embedding classifiers are not ported yet and raise; UMX and
+    DPTNet, ported since (tests/test_torch_umx.py, test_torch_dptnet.py),
+    build their removal task."""
     cfg = tcore.parse_cli(["+exp=5-5_full_cls", f"model={model}", "accelerator=cpu"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_task(cfg)
+    if model == "cls_panns_pt":
+        with pytest.raises(NotImplementedError, match="A10"):
+            build_task(cfg)
+        return
+    task = build_task(cfg)
+    assert isinstance(task, ttasks.RemovalTask) and task.wrapper.name == model
 
 
 def test_more_than_one_device_raises():
