@@ -110,6 +110,31 @@ Then the last two removal backbones and the reference's torch files:
   envelope's launches against the renders that drew the compressor;
   then 2 timed render + train steps.
 
+Then the mixing channel and the evaluation surface:
+
+- the kernels line also holds the phaser's hand-written kernel
+  (csrc/phaser.cu; the JAX package renders it with a lax.scan, no TPU
+  kernel) bit for bit to phaser_plain, run on the host from the same
+  coefficient, at 8 x 2 x 16384 and 8 x 2 x 262144, and times it at
+  8 x 1 and 8 x 2 x 262144.
+- channel: RandomAudioEffectsChannel on the demo clips as stereo, 8 x 2 x
+  262144, with every stage forced on (the phaser's path: one phaser and
+  three envelope launches), then at its default probabilities; every row
+  at -32 LUFS; sox_reverb alone at max_room_scale 100 (n_fft 2^21),
+  timed; one row card against CPU on 65536 samples.
+- generate_dataset: python -m remfx_tpu_torch.cli.generate_dataset
+  +exp=distortion, 4 chunks of 262144; the reference's files on disk.
+- eval_matrix: python -m remfx_tpu_torch.cli.eval_matrix, oracle, detect
+  and all at N = 0 and 1, 16 chunks of 262144, batch 8, one subprocess a
+  cell, with the vendored classifier and slots of trained_dirs (the
+  compressor slot seeded, and said so, only where HDemucs' directory is
+  absent); finite metrics, oracle at N = 0 above 80 dB, detect above all
+  at N = 1; a second sweep skips every cell. The table is printed.
+- train_cls_pt: +exp=5-5_full_cls model=cls_panns_pt (the frozen Cnn14
+  trunk at 32 kHz, a trainable head) through fit at 32 x 262144; the
+  trunk unchanged bit for bit, the head moved, the checkpoint the head's;
+  3 timed steps; one step card against CPU at 4 x 65536.
+
 Usage: python3 chip_smoke.py [--seed N]
 Needs one CUDA device: with none it exits non-zero and prints no result.
 """
@@ -121,7 +146,9 @@ import collections
 import contextlib
 import copy
 import csv
+import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -138,25 +165,31 @@ from remfx_tpu_torch.augment import EffectChainRenderer
 from remfx_tpu_torch.chain.build import build_chain
 from remfx_tpu_torch.chain.inference import ChainInference
 from remfx_tpu_torch.chain.stream import _windows, stream_chain
+from remfx_tpu_torch.cli import eval_matrix, generate_dataset
 from remfx_tpu_torch.cli.demo_detect import detect_remove, trained_cfg
 from remfx_tpu_torch.compat import ocdbt, torch_import
 from remfx_tpu_torch.config.core import default_config, parse_cli
 from remfx_tpu_torch.config.experiments import MODEL_CONFIGS
 from remfx_tpu_torch.data.sources import synthetic_chunk
 from remfx_tpu_torch.data.wav import read_wav
-from remfx_tpu_torch.fx import compressor, make_effect
+from remfx_tpu_torch.fx import RandomAudioEffectsChannel, compressor, make_effect
+from remfx_tpu_torch.fx import phaser as phaser_fx
+from remfx_tpu_torch.fx import sox_reverb
 from remfx_tpu_torch.losses import si_sdr
 from remfx_tpu_torch.models import (make_cnn14, make_dcunet, make_demucs, make_model,
                                     make_tcn)
+from remfx_tpu_torch.models.embedding_classifiers import (make_embedding_classifier,
+                                                       make_panns_embed_fn)
 from remfx_tpu_torch.models.wrappers import ModelWrapper
 from remfx_tpu_torch.ops import _build
 from remfx_tpu_torch.ops.envelope import (envelope, envelope_flags,
                                           envelope_plain, envelope_serial)
 from remfx_tpu_torch.ops.loudness import integrated_loudness, loudness_normalize
+from remfx_tpu_torch.ops.phaser import phaser, phaser_plain
 from remfx_tpu_torch.train.checkpoint import (find_latest_run, load_trained_wrapper,
                                               read_state, restore_from, restore_tree)
 from remfx_tpu_torch.train.loop import build_datamodule, build_task, fit, test
-from remfx_tpu_torch.train.tasks import RemovalTask
+from remfx_tpu_torch.train.tasks import ClassifierTask, RemovalTask
 from remfx_tpu_torch.utils.regroup import bucket_size
 
 ROOT = Path(__file__).resolve().parent
@@ -1290,6 +1323,340 @@ def torch_import_phase(chain, cfg: dict, tmp: Path) -> dict:
             "labels": labels[0].tolist(), "bit_equal": True}
 
 
+# ------------------------------- the mixing channel, the phaser kernel, evaluation
+
+PHASER_CPU_T = 16384  # the phaser's bit-for-bit check, 8 x 2 x 16384
+CHANNEL_CPU_T = 65536  # samples of the channel's card-against-CPU row
+CHANNEL_CPU_TOL = 1e-4  # x peak, as the synthesis path's
+LUFS_CHANNEL_TOL = 0.1  # LU of the channel's -32 LUFS
+CHAIN_ROUNDINGS = 20  # the phaser's dependent roundings a sample (csrc/phaser.cu)
+FP32_LATENCY_CYCLES = 4  # an fp32 multiply or add on Hopper
+EVAL_N, EVAL_CHUNKS, EVAL_BATCH = "0,1", 16, 8
+CLS_PT_ARGS = ["+exp=5-5_full_cls", "model=cls_panns_pt", "datamodule.synthetic=true",
+               "datamodule.dataset_type=dynamic", f"datamodule.train_batch_size={CLS_B}"]
+CLS_PT_CPU_ROWS = 4  # rows of the card-against-CPU step, CPU_T samples each
+
+
+def stereo(clips: torch.Tensor) -> torch.Tensor:
+    """(8, 2, 262144): each demo clip beside the next one."""
+    return torch.stack([clips, clips.roll(1, dims=0)], dim=1).contiguous()
+
+
+def sm_clock_ghz() -> float:
+    """The card's largest SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0]) / 1e3
+
+
+def phaser_row(clips: torch.Tensor, gen: torch.Generator) -> dict:
+    """The phaser kernel against phaser_plain (on the host, from the same
+    coefficient): bit for bit at 8 x 2 x 16384 and at the channel's shape,
+    8 x 2 x 262144; timed at 8 x 1 and 8 x 2 x 262144."""
+    dev = clips.device
+    x2 = stereo(clips)
+    p = phaser_fx.sample_params(gen, B, phaser_fx.DEFAULT_RANGES, device=dev)
+    a = phaser_fx.coefficients(p, T, SR, dev)
+    fb, mix = p["feedback"].contiguous(), p["mix"].contiguous()
+
+    def host(v):
+        return v.cpu()
+
+    xs = x2[..., :PHASER_CPU_T].contiguous()
+    a_s = a[:, :PHASER_CPU_T].contiguous()
+    short = phaser(xs, a_s, fb, mix)
+    check(torch.equal(short.cpu(), phaser_plain(*map(host, (xs, a_s, fb, mix)))),
+          f"phaser kernel equals phaser_plain bit for bit at 8 x 2 x {PHASER_CPU_T}")
+    got = phaser(x2, a, fb, mix)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = phaser_plain(*map(host, (x2, a, fb, mix)))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(got).all()), "phaser finite")
+    equal = torch.equal(got.cpu(), want)
+    check(equal, "phaser kernel equals phaser_plain bit for bit at 8 x 2 x 262144")
+    x1 = clips[:, None, :].contiguous()
+    ms = {"8x1": time_kernel(lambda: phaser(x1, a, fb, mix), rounds=3, calls=3),
+          "8x2": time_kernel(lambda: phaser(x2, a, fb, mix), rounds=3, calls=3)}
+    # a trace of the card can miss its first kernel, so a copy runs first
+    kernels = [k for k in device_kernels(lambda: (x2.add(0.0), phaser(x2, a, fb, mix)))
+               if "phaser" in k]
+    check(len(kernels) >= 1, "the profiler saw the phaser's device kernel")
+    rows, channels, steps = x2.shape
+    n_bytes = (2 * rows * channels * steps + rows * steps + 2 * rows) * 4
+    n_ops = 29 * rows * channels * steps  # per sample: 2 + 6 x 4 + 3 roundings
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    ghz = sm_clock_ghz()
+    return {
+        "name": "phaser",
+        "kind": "hand kernel, not a TPU kernel",
+        "route": "cuda",
+        "source": "remfx_tpu_torch/csrc/phaser.cu",
+        "replaces": "remfx_tpu/fx/phaser.py:94",
+        "shape": [rows, channels, steps],
+        "device_kernels_per_call": len(kernels),
+        "device_kernels": kernels,
+        "max_abs_err": (got.cpu() - want).abs().max().item(),
+        "plain_equal": equal,
+        "plain_equal_samples": [PHASER_CPU_T, steps],
+        "ms": ms["8x2"],
+        "kernel_ms": ms,
+        "plain_ms": plain_ms,
+        "plain_device": "cpu",
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "latency_bound_ms": steps * CHAIN_ROUNDINGS * FP32_LATENCY_CYCLES / (ghz * 1e9) * 1e3,
+        "sm_clock_max_ghz": ghz,
+        "library_ms": None,
+    }
+
+
+def loud_ok(y: torch.Tensor, what: str) -> float:
+    lufs = integrated_loudness(y, SR)
+    err = (lufs + 32.0).abs().max().item()
+    check(err <= LUFS_CHANNEL_TOL, f"{what}: every row at -32 LUFS within "
+          f"{LUFS_CHANNEL_TOL} LU: {err}")
+    return err
+
+
+def channel_phase(clips: torch.Tensor, seed: int) -> dict:
+    """RandomAudioEffectsChannel on the 8 demo clips as stereo x 262144: every
+    stage forced on (all ten probabilities 1), then the defaults; sox_reverb
+    alone at max_room_scale 100; one row card against CPU."""
+    dev = clips.device
+    x = stereo(clips)
+    forced = RandomAudioEffectsChannel(SR, device=dev, **{
+        f"{n}_prob": 1.0 for n in RandomAudioEffectsChannel.DEFAULT_PROBS})
+    apply, params = forced.sample(torch.Generator().manual_seed(seed), B, 2)
+    check(all(bool(v.all()) for v in apply.values()), "every stage drawn for every row")
+    # ---- the channel's path: counts at 0 just before, read just after ----
+    phaser.launches = 0
+    envelope.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = forced.render_batch(x, apply, params)
+    torch.cuda.synchronize()
+    forced_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"phaser": phaser.launches, "envelope": envelope.launches}
+    # ---- end of the channel's path ----
+    check(launches["phaser"] == 1, f"one phaser launch a forced channel call: {launches}")
+    check(launches["envelope"] == 3, "the compressor once and the limiter twice "
+          f"launched the envelope kernel: {launches}")
+    check(y.shape == x.shape and bool(torch.isfinite(y).all()),
+          "forced channel output finite, (8, 2, 262144)")
+    forced_lufs = loud_ok(y, "forced channel")
+    forced_wall = wall_ms(lambda: forced.render_batch(x, apply, params), rounds=2)
+
+    default = RandomAudioEffectsChannel(SR, device=dev)
+    d_apply, d_params = default.sample(torch.Generator().manual_seed(seed), B, 2)
+    phaser.launches = 0
+    envelope.launches = 0
+    yd = default.render_batch(x, d_apply, d_params)
+    torch.cuda.synchronize()
+    d_launches = {"phaser": phaser.launches, "envelope": envelope.launches}
+    check(d_launches["phaser"] == int(bool(d_apply["phaser"].any())),
+          f"the phaser launched once if a row drew it: {d_launches}")
+    check(yd.shape == x.shape and bool(torch.isfinite(yd).all()),
+          "default channel output finite")
+    default_lufs = loud_ok(yd, "default channel")
+    default_ms = wall_ms(lambda: default.render_batch(x, d_apply, d_params), rounds=2)
+
+    sox = make_effect("sox_reverb", SR, device=dev)
+    check(sox.ranges["max_room_scale"] == 100.0, "sox_reverb at max_room_scale 100")
+    n_fft = sox_reverb.fft_size(T, sox.ranges, SR)
+    check(n_fft == 2 ** 21, f"sox_reverb n_fft {n_fft} at 262144 samples")
+    sp = sox.sample_params(torch.Generator().manual_seed(seed), B)
+    torch.cuda.reset_peak_memory_stats()
+    ys = sox.render_batch(x, sp)
+    torch.cuda.synchronize()
+    sox_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(ys.shape == x.shape and bool(torch.isfinite(ys).all()), "sox_reverb finite")
+    sox_ms = wall_ms(lambda: sox.render_batch(x, sp))
+
+    # one row, card against CPU, every stage on, the same parameters
+    cpu = RandomAudioEffectsChannel(SR, device="cpu", **{
+        f"{n}_prob": 1.0 for n in RandomAudioEffectsChannel.DEFAULT_PROBS})
+    one = {n: v[:1] for n, v in apply.items()}
+    p1 = {n: {k: v[:1] for k, v in p.items()} for n, p in params.items()}
+    xr = x[:1, :, :CHANNEL_CPU_T].contiguous()
+    card = forced.render_batch(xr, one, p1)
+    host = cpu.render_batch(xr.cpu(), one,
+                            {n: {k: v.cpu() for k, v in p.items()} for n, p in p1.items()})
+    cpu_err = max_rel(card, host)
+    check(cpu_err <= CHANNEL_CPU_TOL, f"channel card vs CPU {cpu_err} <= {CHANNEL_CPU_TOL}")
+    return {"shape": list(x.shape), "launches": launches, "forced_first_ms": forced_ms,
+            "forced_ms": forced_wall, "forced_lufs_max_err": forced_lufs,
+            "default_drawn": {n: int(v.sum()) for n, v in d_apply.items()},
+            "default_launches": d_launches, "default_ms": default_ms,
+            "default_lufs_max_err": default_lufs,
+            "audio_s_per_s_forced": B * T / SR / (forced_wall / 1e3),
+            "sox_reverb": {"n_fft": n_fft, "ms": sox_ms, "peak_allocated_gib": sox_peak},
+            "cpu_samples": CHANNEL_CPU_T, "cpu_max_rel_err": cpu_err}
+
+
+def generate_dataset_phase(tmp: Path) -> dict:
+    """python -m remfx_tpu_torch.cli.generate_dataset +exp=distortion on the
+    card: 2 train, 1 validation and 1 test chunk of 262144 samples."""
+    root = tmp / "generated"
+    t0 = time.perf_counter()
+    generate_dataset.main(["+exp=distortion", "datamodule.synthetic=true",
+                           "datamodule.train_chunks=2", "datamodule.val_chunks=1",
+                           "datamodule.test_chunks=1", "datamodule.render_batch_size=2",
+                           f"render_root={root}"])
+    seconds = time.perf_counter() - t0
+    dirs = sorted(p.parent for p in root.rglob("input.wav"))
+    check(len(dirs) == 4, f"4 rendered chunks, got {len(dirs)}")
+    for d in dirs:
+        check({p.name for p in d.iterdir()} == {"input.wav", "target.wav",
+                                                "dry_effects.pt", "wet_effects.pt"},
+              f"{d} holds the reference's four files")
+        x, sr = read_wav(d / "input.wav")
+        check(sr == SR and x.shape == (1, T) and bool(np.isfinite(x).all()),
+              f"{d}/input.wav: 48 kHz, 262144 samples, finite")
+    return {"chunks": len(dirs), "splits": sorted({d.parent.name for d in dirs}),
+            "seconds": seconds}
+
+
+def eval_matrix_argv(tmp: Path, root: Path = ROOT) -> tuple[list, str]:
+    """The CLI's flags at full width from the vendored checkpoints of the
+    checkout (trained_dirs), and the compressor slot's weights: "trained"
+    where HDemucs' directory is there, "seeded" where it is not."""
+    dirs, slots = trained_dirs(root)
+    argv = ["--n", EVAL_N, "--variants", "oracle,detect,all",
+            "--test-chunks", str(EVAL_CHUNKS), "--batch", str(EVAL_BATCH),
+            "--root", str(tmp / "data"), "--out", str(tmp / "out"),
+            "--classifier", "ckpts/classifier_cnn14_r5"]
+    for name, slot in zip(dirs[1:], slots):
+        argv += ["--ckpt", f"{slot}=ckpts/{name}"]
+    return argv, "trained" if COMPRESSOR_DIR in dirs else "seeded"
+
+
+def eval_matrix_phase(tmp: Path) -> dict:
+    """python -m remfx_tpu_torch.cli.eval_matrix on the card: oracle, detect
+    and all at N = 0 and 1 over 16 rendered chunks of 262144 samples, batch
+    8, the trained slots and classifier; then a second sweep that must skip
+    every cell."""
+    argv, compressor = eval_matrix_argv(tmp)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    env = dict(os.environ)
+    env.pop("REMFX_ALLOW_RANDOM_CKPT", None)
+    if compressor == "seeded":
+        env["REMFX_ALLOW_RANDOM_CKPT"] = "1"  # the compressor slot alone is absent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "remfx_tpu_torch.cli.eval_matrix", *argv],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"eval_matrix exits 0: {proc.stderr[-3000:]}")
+    rows = json.loads((tmp / "out" / "eval_matrix.json").read_text())
+    cells = {(r["variant"], r["n"]): r for r in rows}
+    check(sorted(cells) == sorted((v, n) for v in ("oracle", "detect", "all")
+                                  for n in (0, 1)), f"six cells: {sorted(cells)}")
+    metrics = ("test_loss", "test_SISDR", "test_STFT", "Input_SISDR", "Input_STFT")
+    for key, r in cells.items():
+        finite_metrics({k: r[k] for k in metrics}, f"eval_matrix {key}")
+        check(r["examples"] == EVAL_CHUNKS, f"{key}: {EVAL_CHUNKS} chunks")
+    check(cells[("oracle", 0)]["test_SISDR"] > 80.0,
+          f"oracle at N = 0 is the identity: {cells[('oracle', 0)]['test_SISDR']} dB")
+    check(cells[("detect", 1)]["test_SISDR"] > cells[("all", 1)]["test_SISDR"],
+          "detect beats all at N = 1")
+    table = (tmp / "out" / "eval_matrix.md").read_text()
+    out = io.StringIO()
+    with contextlib.chdir(ROOT), contextlib.redirect_stdout(out):
+        again = eval_matrix.main(argv)
+    check(again == rows and out.getvalue().count("skip ") == len(rows),
+          "a second sweep skips every cell")
+    print(table, end="", flush=True)
+    return {"compressor": compressor, "cells": len(rows), "seconds": seconds,
+            "card_memory_used_before": smi,
+            "smoke_reserved_gib_before": torch.cuda.memory_reserved() / 2**30,
+            "wall_s": {f"{r['variant']}:{r['n']}": r["wall_s"] for r in rows},
+            "rows": rows, "second_sweep_skipped": len(rows)}
+
+
+def classifier_step(net, batch, lr: float) -> tuple[float, list]:
+    task = ClassifierTask(net, lr=lr, loss_type="ce", sample_rate=SR)
+    state = task.init_state()
+    _, m = task.train_step(state, batch)
+    return m["train_loss"].item(), [p.detach().cpu() for p in net.parameters()]
+
+
+def train_cls_pt_phase(seed: int, logs: Path, clips: torch.Tensor) -> dict:
+    """+exp=5-5_full_cls model=cls_panns_pt (the frozen Cnn14 trunk at
+    32 kHz and a trainable head) on the card through fit, at train_cls's
+    32 x 262144 for CLS_STEPS steps; the trunk unchanged and the head moved;
+    timed steps; one step card against CPU."""
+    cfg = train_cfg(CLS_PT_ARGS, seed, logs, f"trainer.max_steps={CLS_STEPS}",
+                    f"datamodule.train_chunks={CLS_B * CLS_STEPS}",
+                    f"datamodule.val_chunks={CLS_B}", f"datamodule.test_chunks={CLS_B}")
+    m = cfg["model"]
+    check(m["name"] == "embedding" and m["network"]["kind"] == "panns"
+          and m["loss_type"] == "ce" and cfg["datamodule"]["train_batch_size"] == CLS_B,
+          "cls_panns_pt: the PANNs embedding classifier, CE loss, batch 32")
+    head0 = {k: v.clone() for k, v in build_task(cfg).network.state_dict().items()}
+    # ---- the frozen-embedding classifier's training path ----
+    state, test_metrics = fit(cfg)
+    torch.cuda.synchronize()
+    # ---- end of the path ----
+    finite_metrics(test_metrics, "cls_panns_pt test")
+    train_rows = [r for r in csv_rows(logs) if r.get("train_loss")]
+    check(len(train_rows) == CLS_STEPS, f"{CLS_STEPS} cls_panns_pt train rows")
+    finite_metrics({k: float(v) for r in train_rows for k, v in r.items()
+                    if k.startswith("train_") and v}, "cls_panns_pt train")
+    net = state.model
+    head = net.state_dict()
+    check(sorted(head) == sorted(head0) and all(k.startswith("proj.") for k in head),
+          "the trainable parameters are the head's")
+    moved = max((head[k] - v).abs().max().item() for k, v in head0.items())
+    check(moved > 0.0, "the head moved")
+    fresh = make_panns_embed_fn(device=DEVICE).trunk.state_dict()
+    check(all(torch.equal(v, fresh[k]) for k, v in net.embed_fn.trunk.state_dict().items()),
+          "the trunk is unchanged bit for bit")
+    saved = read_state(str(next(logs.rglob("best"))), device="cpu")
+    check(sorted(saved["model"]) == sorted(head0), "the checkpoint holds the head only")
+
+    gen = torch.Generator().manual_seed(seed)
+    xb = torch.cat([clips] * (CLS_B // B))[:, None, :]
+    labels = (torch.rand(CLS_B, len(ALL_EFFECTS), generator=gen) < 0.5).float().to(DEVICE)
+    task = ClassifierTask(net, lr=m["lr"], loss_type="ce", sample_rate=SR)
+    tstate = task.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, sm = task.train_step(tstate, (xb, labels))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        finite_metrics({k: v.item() for k, v in sm.items()}, "cls_panns_pt timed step")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    trunk_cpu = {k: v.cpu() for k, v in net.embed_fn.trunk.state_dict().items()}
+    x0 = xb[:CLS_PT_CPU_ROWS, :, :CPU_T]
+    y0 = labels[:CLS_PT_CPU_ROWS]
+    out = {}
+    for where, dev in (("card", DEVICE), ("cpu", "cpu")):
+        n = make_embedding_classifier("panns", len(ALL_EFFECTS), SR,
+                                      embed_state_dict=trunk_cpu, device=dev)
+        n.load_state_dict({k: v.cpu() for k, v in head.items()})
+        out[where] = classifier_step(n, (x0.to(dev), y0.to(dev)), m["lr"])
+    loss_rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    param_err = max((a - b).abs().max().item() for a, b in zip(out["card"][1], out["cpu"][1]))
+    check(loss_rel <= TRAIN_CPU_TOL, f"cls_panns_pt step loss card vs CPU {loss_rel}")
+    # Adam moves each parameter by about lr a step
+    check(param_err <= 2.05 * m["lr"], f"cls_panns_pt step parameters card vs CPU {param_err}")
+    return {"batch": CLS_B, "samples": T, "steps": state.step,
+            "train_loss": [float(r["train_loss"]) for r in train_rows],
+            "test_metrics": test_metrics, "head_parameters": sum(v.numel() for v in head.values()),
+            "head_max_move": moved, "trunk_unchanged": True, "step_ms": step_ms,
+            "peak_allocated_gib": peak,
+            "cpu_step": {"rows": CLS_PT_CPU_ROWS, "samples": CPU_T,
+                         "loss_cpu": out["cpu"][0], "loss_card": out["card"][0],
+                         "loss_rel_err": loss_rel, "param_max_abs_err": param_err}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1319,7 +1686,9 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     clips = torch.from_numpy(demo_clips()).to(dev)
     row = kernels_phase(clips, gen)
-    ph.done("kernels", **row)
+    prow = phaser_row(clips, torch.Generator().manual_seed(args.seed + 1))
+    ph.done("kernels", kernels=[row, prow])
+    phaser.launches = 0  # no path before the channel's renders a phaser
 
     # ---- the main path: counts at 0 just before, read just after ----
     envelope.launches = 0
@@ -1412,6 +1781,26 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         default = train_default_phase(args.seed, Path(tmp) / "train_default")
     ph.done("train_default", **default)
+    earlier_phaser = phaser.launches
+    check(earlier_phaser == 0, f"no earlier path launched the phaser: {earlier_phaser}")
+
+    channel = channel_phase(clips, args.seed)
+    ph.done("channel", **channel)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phaser.launches = envelope.launches = 0
+        generated = generate_dataset_phase(Path(tmp))
+        generated_launches = {"phaser": phaser.launches, "envelope": envelope.launches}
+        ph.done("generate_dataset", **generated, launches=generated_launches)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        matrix = eval_matrix_phase(Path(tmp))
+    ph.done("eval_matrix", **matrix)
+    with tempfile.TemporaryDirectory() as tmp:
+        phaser.launches = envelope.launches = 0
+        cls_pt = train_cls_pt_phase(args.seed, Path(tmp) / "train_cls_pt", clips)
+        cls_pt_launches = {"phaser": phaser.launches, "envelope": envelope.launches}
+    ph.done("train_cls_pt", **cls_pt, launches=cls_pt_launches)
 
     row["launches_by_path"] = {"render_detect_remove": launches["envelope"],
                                "synth": synth["envelope_launches"],
@@ -1422,10 +1811,20 @@ def main(argv=None) -> int:
                                "umx": umx["envelope_launches"],
                                "dptnet": dptnet["envelope_launches"],
                                "train_default": default["fit_envelope_launches"],
-                               "torch_import": imported["envelope_launches"]}
+                               "torch_import": imported["envelope_launches"],
+                               "channel": channel["launches"]["envelope"],
+                               "channel_defaults": channel["default_launches"]["envelope"],
+                               "generate_dataset": generated_launches["envelope"],
+                               "train_cls_pt": cls_pt_launches["envelope"]}
     row["launches_per_train_default_step"] = default["envelope_launches_per_step"]
     row["launches"] = sum(row["launches_by_path"].values())
-    print(json.dumps({"kernels": [row]}), flush=True)
+    prow["launches_by_path"] = {"before_channel": earlier_phaser,
+                                "channel": channel["launches"]["phaser"],
+                                "channel_defaults": channel["default_launches"]["phaser"],
+                                "generate_dataset": generated_launches["phaser"],
+                                "train_cls_pt": cls_pt_launches["phaser"]}
+    prow["launches"] = channel["launches"]["phaser"]  # the channel's path
+    print(json.dumps({"kernels": [row, prow]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

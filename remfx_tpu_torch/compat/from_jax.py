@@ -19,6 +19,9 @@ loaded with ``load_state_dict(strict=True)``.
   BatchNorm statistics taken from ``batch_stats``.
 * ``dptnet_state_dict`` is a copy of ``torch_import.py:export_dptnet``
   (asteroid naming), ending in torch tensors.
+* ``embedding_classifier_state_dicts``: the ``EmbeddingClassifier``'s head
+  (``proj.fc{0,1,2}``) and, for PANNs, the frozen Cnn14 trunk that its
+  ``embed_fn`` closes over, through ``cnn14_state_dict``.
 
 Layouts: flax conv ``(kh, kw, in, out)`` / ``(k, in, out)`` -> torch
 ``(out, in, kh, kw)`` / ``(out, in, k)``; Dense ``(in, out)`` -> Linear
@@ -331,3 +334,18 @@ def dptnet_state_dict(variables: dict) -> dict:
                     sd[f"{base}.linear.{sub[7:]}"] = leaves.get("params", name, sub)
     leaves.check_all_used()
     return _tensors(sd)
+
+
+def embedding_classifier_state_dicts(variables: dict, trunk_variables=None):
+    """``EmbeddingClassifier`` ``{'params': {'proj': ...}}`` and, optionally,
+    the PANNs trunk's Cnn14 variables -> ``(head, trunk)`` state dicts: the
+    head for the port's ``EmbeddingClassifier.load_state_dict``, the trunk
+    (``None`` without trunk variables) for ``make_panns_embed_fn``."""
+    leaves = _Leaves(variables)
+    sd: dict = {}
+    for i in range(3):
+        sd[f"proj.fc{i}.weight"] = leaves.get("params", "proj", f"fc{i}", "kernel").T
+        sd[f"proj.fc{i}.bias"] = leaves.get("params", "proj", f"fc{i}", "bias")
+    leaves.check_all_used()
+    trunk = None if trunk_variables is None else cnn14_state_dict(trunk_variables)
+    return _tensors(sd), trunk

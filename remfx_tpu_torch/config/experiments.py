@@ -4,9 +4,10 @@ configs (the cfg/exp/ + cfg/model/ surface, SURVEY.md §2.8).
 The port's copy of ``remfx_tpu/config/experiments.py``, equal to it but
 for ``accelerator``: the JAX package names the TPU, the port the card
 ("gpu"). Every removal experiment (tcn, demucs, dcunet, umx, dptnet;
-``default`` is UMX) and the Cnn14 classifiers build; the embedding
-classifiers are named but raise ``NotImplementedError`` when built
-(ROADMAP.md §A10). The chain experiments (``chain_inference*``,
+``default`` is UMX), the Cnn14 classifiers and ``cls_panns_pt`` (the
+frozen-embedding classifier on the in-repo Cnn14 trunk) build; the other
+embedding classifiers need external HEAR checkpoints and raise
+``RuntimeError`` when built. The chain experiments (``chain_inference*``,
 ``remfx_{oracle,detect,all}``) build through
 ``chain/build.py:build_chain``; their ``ckpts/*.ckpt`` paths are the
 reference's published torch checkpoints, which ``compat/torch_import.py``

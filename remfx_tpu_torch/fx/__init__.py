@@ -2,10 +2,10 @@
 
 Counterpart of ``remfx_tpu/fx/__init__.py``. The canonical five (label
 order fixed by ``remfx_tpu_torch.ALL_EFFECTS``): reverb, chorus, delay,
-distortion, compressor; and the extras parametric_eq, limiter,
-stereo_widener and volume_automation. ``phaser`` and ``sox_reverb`` are
-not ported yet (ROADMAP §A7) and raise; ``RandomAudioEffectsChannel``
-waits for ``fx/chain.py``.
+distortion, compressor; and the extras parametric_eq, sox_reverb,
+phaser, limiter, stereo_widener and volume_automation.
+``RandomAudioEffectsChannel`` (``fx/chain.py``) chains all of them but
+sox_reverb.
 """
 
 from remfx_tpu_torch.fx import chorus as _chorus
@@ -13,21 +13,17 @@ from remfx_tpu_torch.fx import compressor as _compressor
 from remfx_tpu_torch.fx import delay as _delay
 from remfx_tpu_torch.fx import distortion as _distortion
 from remfx_tpu_torch.fx import eq as _eq
+from remfx_tpu_torch.fx import phaser as _phaser
 from remfx_tpu_torch.fx import reverb as _reverb
+from remfx_tpu_torch.fx import sox_reverb as _sox_reverb
 from remfx_tpu_torch.fx.base import RandomEffect
+from remfx_tpu_torch.fx.chain import RandomAudioEffectsChannel
 from remfx_tpu_torch.fx.dynamics import (
     LoudnessNormalize,
     make_limiter,
     make_stereo_widener,
     make_volume_automation,
 )
-
-
-def _not_ported(name: str):
-    def make(sample_rate, device=None, **overrides):
-        raise NotImplementedError(
-            f"effect {name!r} is not ported yet (ROADMAP.md §A7); use the JAX package")
-    return make
 
 
 _FACTORIES = {
@@ -37,8 +33,8 @@ _FACTORIES = {
     "distortion": _distortion.make,
     "compressor": _compressor.make,
     "parametric_eq": _eq.make,
-    "sox_reverb": _not_ported("sox_reverb"),
-    "phaser": _not_ported("phaser"),
+    "sox_reverb": _sox_reverb.make,
+    "phaser": _phaser.make,
     "limiter": make_limiter,
     "stereo_widener": make_stereo_widener,
     "volume_automation": make_volume_automation,
@@ -54,4 +50,9 @@ def make_effect(name: str, sample_rate, device=None, **overrides) -> RandomEffec
     return _FACTORIES[name](sample_rate, device=device, **overrides)
 
 
-__all__ = ["RandomEffect", "LoudnessNormalize", "make_effect"]
+__all__ = [
+    "RandomEffect",
+    "RandomAudioEffectsChannel",
+    "LoudnessNormalize",
+    "make_effect",
+]

@@ -27,6 +27,7 @@ from remfx_tpu_torch.data.datasets import (
     InferenceDataset,
 )
 from remfx_tpu_torch.models import make_cnn14, make_model
+from remfx_tpu_torch.models.embedding_classifiers import make_embedding_classifier
 from remfx_tpu_torch.train import checkpoint
 from remfx_tpu_torch.train.checkpoint import CheckpointManager, find_latest_run, restore_from
 from remfx_tpu_torch.train.loggers import make_logger
@@ -106,11 +107,13 @@ def build_task(cfg: dict, device=None):
     torch.manual_seed(cfg["seed"])
     if m["task"] == "classifier":
         if m.get("name") == "embedding":
-            raise NotImplementedError(
-                "the embedding classifiers are not ported yet (ROADMAP.md §A10)")
-        net = make_cnn14(num_classes=cfg["num_classes"],
-                         sample_rate=cfg["sample_rate"], device=device,
-                         **m.get("network", {}))
+            net = make_embedding_classifier(
+                m["network"]["kind"], num_classes=cfg["num_classes"],
+                sample_rate=cfg["sample_rate"], device=device)
+        else:
+            net = make_cnn14(num_classes=cfg["num_classes"],
+                             sample_rate=cfg["sample_rate"], device=device,
+                             **m.get("network", {}))
         return ClassifierTask(
             net,
             lr=m.get("lr", 3e-4),

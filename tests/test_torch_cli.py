@@ -17,6 +17,9 @@ package's scripts, on the CPU (``accelerator=cpu``).
 * ``chip_smoke.trained_dirs``: the slots it expects are demo_detect's map
   both in a full checkout (HDemucs' ckpt present) and in the copy that
   ``.chiprunignore`` trims (no HDemucs); a missing admitted ckpt fails.
+* ``chip_smoke.eval_matrix_argv`` gives the evaluation matrix every
+  vendored slot of both layouts and says whether the compressor slot is
+  trained or seeded.
 * ``chip_smoke.attention_kernels`` picks the fused-attention or softmax
   kernels out of a trace's names, and ``chip_smoke.tf32`` switches TF32
   on and back.
@@ -165,6 +168,36 @@ def test_chip_smoke_trained_slots_follow_demo_detect(monkeypatch, tmp_path,
     (tmp_path / "ckpts" / "dcunet_delay_aug_r5" / "hparams.json").unlink()
     with pytest.raises(RuntimeError, match="dcunet_delay_aug_r5"):
         chip_smoke.trained_dirs(tmp_path)
+
+
+@pytest.mark.parametrize("with_compressor", [True, False],
+                         ids=["full_checkout", "trimmed_copy"])
+def test_chip_smoke_eval_matrix_names_every_vendored_slot(monkeypatch, tmp_path,
+                                                          with_compressor):
+    """The eval_matrix phase hands the CLI every vendored slot of the
+    checkout and the trained classifier, and says whether the compressor
+    slot is trained (HDemucs' directory present) or seeded."""
+    import chip_smoke
+    from remfx_tpu_torch.cli import eval_matrix
+
+    names = chip_smoke.TRAINED_DIRS + (chip_smoke.COMPRESSOR_DIR,) * with_compressor
+    for name in names:
+        (tmp_path / "ckpts" / name / "variables").mkdir(parents=True)
+        (tmp_path / "ckpts" / name / "hparams.json").write_text("{}")
+    argv, compressor = chip_smoke.eval_matrix_argv(tmp_path / "run", tmp_path)
+    assert compressor == ("trained" if with_compressor else "seeded")
+    args = eval_matrix.parse_args(argv)
+    assert (args.n, args.variants, args.test_chunks, args.batch) == (
+        "0,1", "oracle,detect,all", 16, 8)
+    assert args.accelerator is None  # the card
+    cfg = eval_matrix.build_cfg(args, "remfx_detect", 1)
+    vendored = {k: v["ckpt_path"] for k, v in cfg["ckpts"].items()
+                if not v["ckpt_path"].endswith(".ckpt")}
+    assert vendored == {slot: f"ckpts/{name}" for slot, name in zip(
+        chip_smoke.TRAINED_SLOTS + (chip_smoke.COMPRESSOR_SLOT,) * with_compressor,
+        names[1:])}
+    assert cfg["classifier_ckpt"] == "ckpts/classifier_cnn14_r5"
+    assert cfg["chunk_size"] == chip_smoke.T and cfg["num_removed_effects"] == [1, 1]
 
 
 MEM_EFFICIENT = "fmha_cutlassF_f32_aligned_64x64_rf_sm80(PyTorchMemEffAttention::AttentionKernel)"

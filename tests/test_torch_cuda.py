@@ -505,3 +505,77 @@ def test_trained_slot_on_the_card_matches_the_cpu(cuda, name):
     want = on_cpu.sample(x)
     assert got.shape == want.shape
     assert ((got - want).abs().max() / want.abs().max()).item() <= CPU_TOL
+
+
+# ---------------------------------------------------------------- the phaser
+
+def _phaser_case(B, C, T, seed=0):
+    """Input, the coefficient (formed on the card, then shared by both
+    versions), feedback and mix, all on the card."""
+    from remfx_tpu_torch.fx import phaser as tph
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((0.5 * rng.standard_normal((B, C, T))).astype(np.float32))
+    params = {k: torch.from_numpy(rng.uniform(lo, hi, B).astype(np.float32)).cuda()
+              for k, lo, hi in (("rate_hz", 0.25, 5.0), ("depth", 0.1, 0.6),
+                                ("centre_frequency_hz", 200.0, 200.0),
+                                ("feedback", 0.1, 0.6), ("mix", 0.1, 0.7))}
+    a = tph.coefficients(params, T, SR, torch.device("cuda"))
+    return x.cuda(), a, params["feedback"], params["mix"]
+
+
+# 40 rows: two blocks; 5000 samples: 156 lines of 32 and a tail; 31: the tail
+# alone; 8 x 2 x 16384: the channel's shape, cut in time
+@pytest.mark.parametrize("B,C,T", [(3, 1, 5000), (20, 2, 1000), (8, 2, 31),
+                                   (8, 2, 16384)])
+def test_phaser_kernel_equals_plain_bit_for_bit(cuda, B, C, T):
+    """Every product and sum of the kernel rounds to nearest in the plain
+    version's order (no FMA), so the two agree bit for bit, the plain
+    version run on the host from the same coefficient."""
+    from remfx_tpu_torch.ops.phaser import phaser, phaser_plain
+
+    x, a, fb, mix = _phaser_case(B, C, T)
+    before = phaser.launches
+    got = phaser(x, a, fb, mix)
+    torch.cuda.synchronize()
+    assert phaser.launches == before + 1
+    want = phaser_plain(x.cpu(), a.cpu(), fb.cpu(), mix.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+def test_phaser_unaligned_rows_take_the_scalar_path(cuda):
+    # a row stride of 4097 floats leaves rows 1 and 2 off 16-byte alignment
+    from remfx_tpu_torch.ops.phaser import phaser, phaser_plain
+
+    x, a, fb, mix = _phaser_case(3, 1, 4097, seed=1)
+    got = phaser(x, a, fb, mix)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), phaser_plain(x.cpu(), a.cpu(), fb.cpu(), mix.cpu()))
+
+
+def test_phaser_wrapper_raises_instead_of_falling_back(cuda, monkeypatch):
+    from remfx_tpu_torch.ops import phaser as ops_phaser
+
+    x, a, fb, mix = _phaser_case(2, 1, 100)
+    with pytest.raises(TypeError):
+        ops_phaser.phaser(x.double(), a, fb, mix)
+    with pytest.raises(ValueError):
+        ops_phaser.phaser(x, a.cpu(), fb, mix)  # coefficient left on the CPU
+
+    class Refused:
+        @staticmethod
+        def remfx_phaser(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(ops_phaser, "_lib", lambda: Refused)
+    before = ops_phaser.phaser.launches
+    with pytest.raises(RuntimeError, match="phaser kernel launch failed"):
+        ops_phaser.phaser(x, a, fb, mix)
+    assert ops_phaser.phaser.launches == before
+
+    def no_compiler():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(ops_phaser, "_lib", no_compiler)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops_phaser.phaser(x, a, fb, mix)

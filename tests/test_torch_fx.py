@@ -297,9 +297,14 @@ def test_volume_fractions_are_dirichlet_over_the_active_segments():
 
 
 def test_registry():
+    """Every name of the JAX registry builds, ``phaser`` and ``sox_reverb``
+    included (held to JAX in test_torch_phaser.py / test_torch_sox_reverb.py)."""
     for name in ("phaser", "sox_reverb"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_effect(name, SR, device="cpu")
+        eff = make_effect(name, SR, device="cpu")
+        assert eff.name == name and eff.ranges == j_make_effect(name, SR).ranges
+        x = torch.from_numpy(_audio(rows=2, T=1024))
+        y = eff(torch.Generator().manual_seed(0), x)
+        assert y.shape == x.shape and bool(torch.isfinite(y).all())
     with pytest.raises(ValueError):
         make_effect("flanger", SR, device="cpu")
     eff = make_effect("delay", SR, device="cpu", max_delay_sconds=0.5)

@@ -25,6 +25,10 @@ CHAIN_PATH = (
 BACKBONE_PATH = (
     "models.umx", "models.dptnet", "ops.wiener", "compat.torch_import",
 )
+CHANNEL_PATH = (
+    "fx.phaser", "ops.phaser", "fx.sox_reverb", "fx.chain",
+    "models.embedding_classifiers", "cli.generate_dataset", "cli.eval_matrix",
+)
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|flax|remfx_tpu|orbax|tensorstore|zstandard)\b")
 
@@ -53,9 +57,9 @@ def test_import_leaves_jax_out():
     assert out.returncode == 0, out.stderr
     # every module of the port was imported, the training path's too
     names = set(out.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 56
+    assert len(names) >= 76
     assert {f"remfx_tpu_torch.{m}"
-            for m in TRAINING_PATH + CHAIN_PATH + BACKBONE_PATH} <= names
+            for m in TRAINING_PATH + CHAIN_PATH + BACKBONE_PATH + CHANNEL_PATH} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -464,13 +464,15 @@ def test_parse_cli_equals_the_jax_cli():
 
 @pytest.mark.parametrize("model", ["umx", "dptnet", "cls_panns_pt"])
 def test_unported_models_raise(model):
-    """The embedding classifiers are not ported yet and raise; UMX and
-    DPTNet, ported since (tests/test_torch_umx.py, test_torch_dptnet.py),
-    build their removal task."""
+    """Once unported, each builds its task now: UMX and DPTNet their removal
+    task (tests/test_torch_umx.py, test_torch_dptnet.py), ``cls_panns_pt``
+    its classifier task on the frozen Cnn14 trunk
+    (tests/test_torch_embedding.py)."""
     cfg = tcore.parse_cli(["+exp=5-5_full_cls", f"model={model}", "accelerator=cpu"])
     if model == "cls_panns_pt":
-        with pytest.raises(NotImplementedError, match="A10"):
-            build_task(cfg)
+        task = build_task(cfg)
+        assert isinstance(task, ttasks.ClassifierTask) and task.loss_type == "ce"
+        assert all(k.startswith("proj.") for k in task.network.state_dict())
         return
     task = build_task(cfg)
     assert isinstance(task, ttasks.RemovalTask) and task.wrapper.name == model
