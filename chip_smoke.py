@@ -135,7 +135,26 @@ Then the mixing channel and the evaluation surface:
   trunk unchanged bit for bit, the head moved, the checkpoint the head's;
   3 timed steps; one step card against CPU at 4 x 65536.
 
-Usage: python3 chip_smoke.py [--seed N]
+Then the multi-device slice, on every card there is (one under a plain
+run; ``--only parallel`` runs the device and build phases and this one
+alone, e.g. on four cards):
+
+- parallel: compression_aug (HDemucs, 16 x 262144, fp32) fits 2 steps on
+  an NCCL group of every card through parallel/launch.py, each rank
+  rendering the one device's batch and keeping its rows, then 3 timed
+  render + step rounds in each rank (render_ms, step_ms, peak memory,
+  one envelope launch a step); the same fit in one process: the train
+  loss per step within 1e-5 relative and the parameters after the steps
+  within 0.2 lr. The tcn experiment's network (20 x 256, kernel 7) with
+  remat on and off at 2 x 262144 fp32 (the gradients of a fixed ramp's
+  product with the output, within 1e-6, and both peaks), and one
+  bf16-mixed step with remat at 16 x 262144. PipelineChain of the seeded
+  five-slot chain over the cards on 4 windows of the demo batch, each
+  equal to ChainInference.run bit for bit, its wall time beside 4
+  sequential run calls. Where there are two cards or more, a dp x tp
+  (FSDP2) step of that TCN at 8 x 131072 against one process.
+
+Usage: python3 chip_smoke.py [--seed N] [--only parallel]
 Needs one CUDA device: with none it exits non-zero and prints no result.
 """
 
@@ -284,6 +303,19 @@ def time_kernel(fn, warmup: int = 3, rounds: int = 5, calls: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
+
+
+def load_kernel_modules(dev):
+    """One launch of each hand kernel on a tiny input, before any profiler
+    trace starts. CUDA loads a kernel at its first launch, and a trace has
+    missed the phaser's kernel, first launched after the envelope's traces,
+    in every try of a process, where the envelope's kernels, first launched
+    before any trace, were seen."""
+    x = torch.full((1, 4096), 0.5, device=dev)
+    c = torch.full((1,), 0.5, device=dev)
+    envelope(x, c, c)
+    phaser(x[:, None, :].contiguous(), x, c, c)
+    torch.cuda.synchronize()
 
 
 def device_kernels(fn) -> list:
@@ -1350,7 +1382,33 @@ def sm_clock_ghz() -> float:
     return float(out.strip().splitlines()[0]) / 1e3
 
 
-def phaser_row(clips: torch.Tensor, gen: torch.Generator) -> dict:
+# The phaser's trace in a process of its own, where it is the first thing
+# traced: run from the repo's root with the generator's seed.
+PHASER_TRACE = """
+import json, sys
+import torch
+import chip_smoke as cs
+dev = torch.device("cuda")
+cs._build.build(cs._build.all_sources())
+x2 = cs.stereo(torch.from_numpy(cs.demo_clips()).to(dev))
+gen = torch.Generator().manual_seed(int(sys.argv[1]))
+p = cs.phaser_fx.sample_params(gen, cs.B, cs.phaser_fx.DEFAULT_RANGES, device=dev)
+a = cs.phaser_fx.coefficients(p, cs.T, cs.SR, dev)
+fb, mix = p["feedback"].contiguous(), p["mix"].contiguous()
+cs.phaser(x2, a, fb, mix)
+names = cs.device_kernels(lambda: (x2.add(0.0), cs.phaser(x2, a, fb, mix), x2.add(0.0)))
+print(json.dumps([k for k in names if "phaser" in k]))
+"""
+
+
+def phaser_trace_apart(seed: int) -> list:
+    """The phaser's device kernels in one call, traced by a new process."""
+    out = subprocess.run([sys.executable, "-c", PHASER_TRACE, str(seed)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phaser_row(clips: torch.Tensor, gen: torch.Generator, seed: int) -> dict:
     """The phaser kernel against phaser_plain (on the host, from the same
     coefficient): bit for bit at 8 x 2 x 16384 and at the channel's shape,
     8 x 2 x 262144; timed at 8 x 1 and 8 x 2 x 262144."""
@@ -1379,9 +1437,22 @@ def phaser_row(clips: torch.Tensor, gen: torch.Generator) -> dict:
     x1 = clips[:, None, :].contiguous()
     ms = {"8x1": time_kernel(lambda: phaser(x1, a, fb, mix), rounds=3, calls=3),
           "8x2": time_kernel(lambda: phaser(x2, a, fb, mix), rounds=3, calls=3)}
-    # a trace of the card can miss its first kernel, so a copy runs first
-    kernels = [k for k in device_kernels(lambda: (x2.add(0.0), phaser(x2, a, fb, mix)))
-               if "phaser" in k]
+    # a trace of the card can miss its first kernel, so a copy runs first,
+    # and one after. After the envelope's traces and this row's host loop,
+    # the profiler misses this kernel in most traces of this process (whole
+    # runs on the card saw it in their 4th, 11th and 47th), where a new
+    # process that traces it first has seen it every time: three traces
+    # here, host + card and card alone, then up to three in new processes
+    def traced(cuda_only):
+        call = lambda: (x2.add(0.0), phaser(x2, a, fb, mix), x2.add(0.0))  # noqa: E731
+        names = (device_kernel_counts(call).elements() if cuda_only
+                 else device_kernels(call))
+        return [k for k in names if "phaser" in k]
+
+    for traces in range(1, 7):
+        kernels = traced(cuda_only=traces % 2 == 0) if traces <= 3 else phaser_trace_apart(seed)
+        if kernels:
+            break
     check(len(kernels) >= 1, "the profiler saw the phaser's device kernel")
     rows, channels, steps = x2.shape
     n_bytes = (2 * rows * channels * steps + rows * steps + 2 * rows) * 4
@@ -1398,6 +1469,7 @@ def phaser_row(clips: torch.Tensor, gen: torch.Generator) -> dict:
         "shape": [rows, channels, steps],
         "device_kernels_per_call": len(kernels),
         "device_kernels": kernels,
+        "traces": traces,  # 4-6: in a new process
         "max_abs_err": (got.cpu() - want).abs().max().item(),
         "plain_equal": equal,
         "plain_equal_samples": [PHASER_CPU_T, steps],
@@ -1657,9 +1729,301 @@ def train_cls_pt_phase(seed: int, logs: Path, clips: torch.Tensor) -> dict:
                          "loss_rel_err": loss_rel, "param_max_abs_err": param_err}}
 
 
+# -------------------------------------------------------------- multi-device
+
+PAR_STEPS = 2  # fit steps of the data-parallel run and of its one-process twin
+PAR_LOSS_TOL = 1e-5  # train loss per step, relative
+LR = 1e-4  # compression_aug's, and the tcn experiment's
+# The parameters after the steps, ranks against one process, in units of
+# lr: Adam moves an element by about lr whatever its gradient's size, so
+# where the ranks' sums of halves round a near-zero gradient to the other
+# sign the element moves up to 2 lr the other way on that step. The rule
+# of tests/test_torch_train.py for the Mini-DCUNet: none beyond 2.05 lr a
+# step, at most 0.1 % of the elements beyond 0.5 lr. Adam's first moment,
+# the averaged gradient itself, within PAR_MOMENT_TOL of the largest
+# moment: a wrong average (a sum, or one rank's) is off by a factor of
+# the ranks.
+PAR_SHARE, PAR_MOMENT_TOL = 1e-3, 1e-2
+PAR_TIMED = 3  # timed render + train steps in each rank
+JOIN_S = 900  # deadline of a launch's join
+REMAT_B, REMAT_BF16_B = 2, 16  # the tcn experiment's network, remat off / on, at 262144
+REMAT_TOL = 1e-6  # gradients, relative to each parameter's largest
+PIPE_WINDOWS = 4
+TP_B, TP_T = 8, 131072  # the dp x tp step's batch
+
+
+def ddp_rank(cfg: dict, timed: int) -> dict:
+    """One rank of the data-parallel run (``launch.spawn`` runs it in each
+    process of the NCCL group): ``fit`` through the port's per-rank
+    worker, then ``timed`` renders of the one device's batch and train
+    steps on this rank's rows, each timed, with the envelope's launches."""
+    import torch.distributed as dist
+
+    from remfx_tpu_torch.parallel import batch_rows
+    from remfx_tpu_torch.train.loop import _shard_state, build_mesh, device_of, rank_fit
+
+    dev = device_of(cfg)
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+           "backend": dist.get_backend(), "device": str(dev)}
+    envelope.launches = phaser.launches = 0
+    out["test_metrics"] = rank_fit(cfg)
+    torch.cuda.synchronize()
+    out["fit_envelope_launches"] = envelope.launches
+    out["fit_phaser_launches"] = phaser.launches
+    mesh = build_mesh(cfg)
+    task = build_task(cfg, dev)
+    state = _shard_state(task, task.init_state(), mesh)
+    data = build_datamodule({**cfg, "render_files": False}, dev)
+    b = cfg["datamodule"]["train_batch_size"]
+    render_ms, step_ms, per_step = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(timed):
+        before = envelope.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = data.train_dataset.get_batch(np.arange(i * b, (i + 1) * b))
+        rows = batch_rows(b, mesh)
+        x, y = (rows.take(t) for t in batch[:2])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, m = task.train_step(state, (x, y), rows)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        render_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+        per_step.append(envelope.launches - before)
+    out.update(rows=[rows.start, rows.stop], render_ms=render_ms, step_ms=step_ms,
+               envelope_launches_per_step=per_step,
+               peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def compare_states(got: dict, want: dict, steps: int, what: str) -> dict:
+    """Parameters (``model``) and Adam's first moments (``optimizer``) of
+    two ``TrainState.state_dict()``s, ranks' against one process'."""
+    check(set(got["model"]) == set(want["model"]), f"{what}: the module's own names")
+    errs = torch.cat([(got["model"][k].float() - v.float()).abs().flatten()
+                      for k, v in want["model"].items() if v.is_floating_point()])
+    # over the largest moment of all: a parameter whose gradient is zero
+    # but for rounding (a bias before a normalisation) has no scale of its own
+    moments = want["optimizer"]["state"].items()
+    moment = (max((got["optimizer"]["state"][i]["exp_avg"] - st["exp_avg"]).abs().max().item()
+                  for i, st in moments)
+              / max(st["exp_avg"].abs().max().item() for _, st in moments))
+    out = {"param_max_abs_err_lr": errs.max().item() / LR,
+           "param_share_beyond_0.2lr": (errs > 0.2 * LR).float().mean().item(),
+           "param_share_beyond_0.5lr": (errs > 0.5 * LR).float().mean().item(),
+           "exp_avg_max_rel_err": moment}
+    check(out["param_max_abs_err_lr"] <= 2.05 * steps
+          and out["param_share_beyond_0.5lr"] <= PAR_SHARE, f"{what} parameters: {out}")
+    check(moment <= PAR_MOMENT_TOL, f"{what} Adam first moments: {moment}")
+    return out
+
+
+def last_state(logs: Path) -> dict:
+    return read_state(str(find_latest_run(str(logs)) / "last"))
+
+
+def ddp_part(seed: int, tmp: Path, n: int) -> dict:
+    """compression_aug on ``n`` ranks through launch.spawn, then the same
+    fit in this process: the train loss per step and the parameters."""
+    from remfx_tpu_torch.parallel import launch
+
+    def cfg_of(tag, devices):
+        return train_cfg(TRAIN_ARGS, seed, tmp / tag, f"trainer.max_steps={PAR_STEPS}",
+                         f"trainer.devices={devices}",
+                         f"datamodule.train_chunks={TRAIN_B * PAR_STEPS}",
+                         f"datamodule.val_chunks={TRAIN_B}",
+                         f"datamodule.test_chunks={TRAIN_B}",
+                         f"datamodule.test_batch_size={TRAIN_B}")
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.spawn(ddp_rank, n, cfg_of("ddp", n), PAR_TIMED, device_type="cuda",
+                         timeout=JOIN_S)
+    ddp_s = time.perf_counter() - t0
+    for r in ranks:
+        check(r["backend"] == "nccl" and r["device"].startswith("cuda"),
+              f"rank {r['rank']}: backend {r['backend']} on {r['device']}")
+        check(r["envelope_launches_per_step"] == [1] * PAR_TIMED,
+              f"rank {r['rank']}: one envelope launch a step: {r['envelope_launches_per_step']}")
+        finite_metrics(r["test_metrics"], f"rank {r['rank']} test")
+    t0 = time.perf_counter()
+    _, one_metrics = fit(cfg_of("one", 1))
+    one_s = time.perf_counter() - t0
+    losses = {tag: [float(row["train_loss"]) for row in csv_rows(tmp / tag)
+                    if row.get("train_loss")] for tag in ("ddp", "one")}
+    check(len(losses["ddp"]) == len(losses["one"]) == PAR_STEPS,
+          f"{PAR_STEPS} train rows each: {losses}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["ddp"], losses["one"]))
+    check(loss_rel <= PAR_LOSS_TOL, f"train loss per step, {n} ranks against one: {loss_rel}")
+    states = compare_states(last_state(tmp / "ddp"), last_state(tmp / "one"), PAR_STEPS,
+                            f"{n} ranks against one")
+    return {"ranks": ranks, "fit_s": ddp_s, "one_process_fit_s": one_s,
+            "train_loss": losses, "loss_rel_err": loss_rel, **states,
+            "one_process_test_metrics": one_metrics,
+            "envelope_launches": sum(r["fit_envelope_launches"] for r in ranks),
+            "phaser_launches": sum(r["fit_phaser_launches"] for r in ranks)}
+
+
+def tcn_remat_part(seed: int, dev) -> dict:
+    """The tcn experiment's network (20 x 256, kernel 7): remat on against
+    off at 2 x 262144 fp32 (the gradients of one forward and backward, and
+    the peaks), then one bf16-mixed RemovalTask step with remat at 16 x
+    262144 (its first: cuDNN's bf16 plans are made in it)."""
+    net = MODEL_CONFIGS["tcn"]["network"]
+    torch.manual_seed(seed)
+    plain = make_tcn(sample_rate=SR, device=dev, remat=False, **net)
+    remat = copy.deepcopy(plain)
+    remat.module.remat = True
+    gen = torch.Generator().manual_seed(seed)
+    x = (0.3 * torch.randn(REMAT_BF16_B, 1, T, generator=gen)).to(dev)
+    y = 0.5 * torch.tanh(2 * x)
+    out = {}
+    grads = {}
+    for name, w in (("off", plain), ("on", remat)):
+        w.train().zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        # the gradient of a fixed ramp's product with the output: the
+        # removal loss's STFT pads by reflection, whose backward on the
+        # card adds with atomics and moves the deep gradients in their last digits
+        # from one run to the next, remat or not
+        yo = w(x[:REMAT_B])
+        (yo * torch.linspace(-1, 1, yo.shape[-1], device=dev)).sum().backward()
+        torch.cuda.synchronize()
+        out[f"fp32_{name}"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                               "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+        grads[name] = [p.grad for p in w.parameters()]
+        del yo
+    rel = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(grads["on"], grads["off"]))
+    check(rel <= REMAT_TOL, f"TCN gradients, remat on against off: {rel}")
+    check(out["fp32_on"]["peak_allocated_gib"] < out["fp32_off"]["peak_allocated_gib"],
+          "remat lowers the peak")
+    del plain, grads
+    remat.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    task = RemovalTask(remat, max_steps=100, precision="bf16-mixed")
+    state = task.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # cuDNN's deterministic algorithms (on for the rest of the smoke) take
+    # a direct bf16 dgrad kernel for these dilated convolutions, about 4 x
+    # slower: training chooses freely
+    deterministic, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, False
+    try:
+        t0 = time.perf_counter()
+        _, m = task.train_step(state, (x, y))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    finite_metrics({k: v.item() for k, v in m.items()}, "TCN bf16 remat step")
+    out["bf16_remat_step"] = {"batch": REMAT_BF16_B, "samples": T, "step_ms": step_ms,
+                              "cudnn_deterministic": False,
+                              "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                              "train_loss": m["train_loss"].item()}
+    out.update(grad_rel_err=rel, grads_bit_equal=rel == 0.0,
+               receptive_field=remat.module.compute_receptive_field(),
+               parameters=sum(p.numel() for p in remat.parameters()))
+    return out
+
+
+def pipeline_part(seed: int, clips: torch.Tensor) -> dict:
+    """PipelineChain over every card (the seeded five-slot chain of
+    build_slots, classifier first) on 4 windows of the demo batch: each
+    window equal to ChainInference.run bit for bit; the wall time of the
+    pipelined windows beside 4 sequential run calls."""
+    from remfx_tpu_torch.chain.pipeline import PipelineChain
+
+    dev = torch.device("cuda", 0)
+    torch.manual_seed(seed)
+    cls, slots = build_slots(dev)
+    chain = ChainInference(slots, SR, classifier=cls)
+    windows = [torch.roll(clips, k * T // PIPE_WINDOWS, dims=-1)[:, None, :].contiguous()
+               for k in range(PIPE_WINDOWS)]
+    pipe = PipelineChain(chain)
+    pipe(windows[:1])  # warm-up of every stage's device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = pipe(windows)
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    runs = [chain.run(w) for w in windows]
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    for i, ((y, lab), (y_run, lab_run)) in enumerate(zip(outs, runs)):
+        check(torch.equal(lab.to(dev), lab_run), f"window {i}: the pipeline's labels equal run's")
+        check(torch.equal(y.to(dev), y_run), f"window {i}: the pipeline equals run bit for bit")
+    return {"windows": PIPE_WINDOWS, "rows": B, "samples": T,
+            "stage_device": {k: str(v) for k, v in pipe.stage_device.items()},
+            "pipeline_ms": pipe_ms, "sequential_run_ms": run_ms,
+            "speedup": run_ms / pipe_ms, "bit_equal": True}
+
+
+def tensor_parallel_part(seed: int, n: int) -> dict:
+    """A dp x tp (FSDP2) step of the tcn experiment's network on ``n`` cards
+    against the one-process step on the card."""
+    from remfx_tpu_torch.parallel import launch
+    from remfx_tpu_torch.parallel.steps import removal_steps
+
+    net = dict(MODEL_CONFIGS["tcn"]["network"])
+    torch.manual_seed(seed)
+    sd = {k: v.numpy() for k, v in make_tcn(sample_rate=SR, device="cpu", **net)
+          .module.state_dict().items()}
+    gen = np.random.default_rng(seed)
+    x = (0.3 * gen.standard_normal((TP_B, 1, TP_T))).astype(np.float32)
+    y = (0.5 * np.tanh(2 * x)).astype(np.float32)
+    tp = 2
+    args = ("tcn", net, sd, x, y, 1, tp, "32", "cuda")
+    t0 = time.perf_counter()
+    ranks = launch.spawn(removal_steps, n - n % tp, *args, device_type="cuda",
+                         timeout=JOIN_S)
+    spawn_s = time.perf_counter() - t0
+    one = removal_steps("tcn", net, sd, x, y, 1, 1, "32", "cuda")
+    got, want = ranks[0]["losses"][0], one["losses"][0]
+    loss_rel = abs(got - want) / abs(want)
+    check(loss_rel <= PAR_LOSS_TOL, f"dp x tp loss against one process: {loss_rel}")
+    check(all(r["sharded"] for r in ranks), "the ranks' parameters are DTensors")
+    states = compare_states(*({"model": {k: torch.from_numpy(v) for k, v in r["state_dict"].items()},
+                               "optimizer": {"state": {i: {"exp_avg": torch.from_numpy(m)}
+                                                       for i, m in enumerate(r["exp_avg"])}}}
+                              for r in (ranks[0], one)), 1, "dp x tp against one process")
+    return {"mesh": ranks[0]["mesh"], "batch": TP_B, "samples": TP_T, "seconds": spawn_s,
+            "loss": got, "loss_rel_err": loss_rel, **states}
+
+
+def parallel_phase(seed: int, clips: torch.Tensor) -> dict:
+    """The multi-device slice on every card there is: data-parallel fit on
+    an NCCL group, the TCN's remat, PipelineChain, and dp x tp where there
+    are two cards or more."""
+    n = torch.cuda.device_count()
+    out = {"cards": n}
+
+    def part(name, fn, *args):
+        out[name] = fn(*args)
+        print(json.dumps({"parallel_part": name, name: out[name]}), flush=True)
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        part("ddp", ddp_part, seed, Path(tmp), n)
+    part("tcn_remat", tcn_remat_part, seed, torch.device("cuda", 0))
+    part("pipeline", pipeline_part, seed, clips)
+    out["tensor_parallel"] = None
+    if n >= 2:
+        part("tensor_parallel", tensor_parallel_part, seed, n)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=["parallel"],
+                    help="run the device and build phases and this phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -1685,8 +2049,17 @@ def main(argv=None) -> int:
 
     gen = torch.Generator().manual_seed(args.seed)
     clips = torch.from_numpy(demo_clips()).to(dev)
+    load_kernel_modules(dev)  # every path's counts are set to 0 before it
+    if args.only == "parallel":
+        par = parallel_phase(args.seed, clips)
+        print(json.dumps({"parallel": par}), flush=True)
+        ph.done("parallel")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     row = kernels_phase(clips, gen)
-    prow = phaser_row(clips, torch.Generator().manual_seed(args.seed + 1))
+    prow = phaser_row(clips, torch.Generator().manual_seed(args.seed + 1), args.seed + 1)
     ph.done("kernels", kernels=[row, prow])
     phaser.launches = 0  # no path before the channel's renders a phaser
 
@@ -1801,6 +2174,10 @@ def main(argv=None) -> int:
         cls_pt = train_cls_pt_phase(args.seed, Path(tmp) / "train_cls_pt", clips)
         cls_pt_launches = {"phaser": phaser.launches, "envelope": envelope.launches}
     ph.done("train_cls_pt", **cls_pt, launches=cls_pt_launches)
+    torch.cuda.empty_cache()
+    par = parallel_phase(args.seed, clips)  # the ranks count their own launches
+    print(json.dumps({"parallel": par}), flush=True)
+    ph.done("parallel")
 
     row["launches_by_path"] = {"render_detect_remove": launches["envelope"],
                                "synth": synth["envelope_launches"],
@@ -1815,14 +2192,16 @@ def main(argv=None) -> int:
                                "channel": channel["launches"]["envelope"],
                                "channel_defaults": channel["default_launches"]["envelope"],
                                "generate_dataset": generated_launches["envelope"],
-                               "train_cls_pt": cls_pt_launches["envelope"]}
+                               "train_cls_pt": cls_pt_launches["envelope"],
+                               "parallel": par["ddp"]["envelope_launches"]}
     row["launches_per_train_default_step"] = default["envelope_launches_per_step"]
     row["launches"] = sum(row["launches_by_path"].values())
     prow["launches_by_path"] = {"before_channel": earlier_phaser,
                                 "channel": channel["launches"]["phaser"],
                                 "channel_defaults": channel["default_launches"]["phaser"],
                                 "generate_dataset": generated_launches["phaser"],
-                                "train_cls_pt": cls_pt_launches["phaser"]}
+                                "train_cls_pt": cls_pt_launches["phaser"],
+                                "parallel": par["ddp"]["phaser_launches"]}
     prow["launches"] = channel["launches"]["phaser"]  # the channel's path
     print(json.dumps({"kernels": [row, prow]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -402,7 +402,14 @@ class EffectDatamodule:
     batch-size conventions (train==val batch size, datasets.py:623-673).
     Loaders yield ``(wet, dry, dry_labels, wet_labels)``: numpy batches of
     map-style datasets, and device tensors of datasets that render whole
-    batches (``get_batch``)."""
+    batches (``get_batch``).
+
+    Under data parallelism a loader is given ``rows_of``, which maps a
+    global batch's size to this rank's ``parallel.Rows``; it then yields
+    ``(rows, batch)`` with this rank's rows only. A rendering dataset
+    renders the whole batch (its render is seeded per batch, so every rank
+    draws the one device's batch) and keeps the rank's rows; a map-style
+    dataset loads only the rank's items."""
 
     def __init__(self, train_dataset, val_dataset, test_dataset, *,
                  train_batch_size: int, test_batch_size: int,
@@ -423,27 +430,31 @@ class EffectDatamodule:
         if hasattr(self.train_dataset, "set_epoch"):
             self.train_dataset.set_epoch(self._epoch)
 
-    def _iterate(self, dataset, batch_size: int, shuffle: bool):
+    def _iterate(self, dataset, batch_size: int, shuffle: bool, rows_of=None):
         n = len(dataset)
         order = np.arange(n)
         if shuffle:
             order = np.random.default_rng([self.seed, self._epoch]).permutation(n)
         for start in range(0, n, batch_size):
             idx = order[start : start + batch_size]
+            rows = None if rows_of is None else rows_of(len(idx))
             if hasattr(dataset, "get_batch"):
-                yield dataset.get_batch(idx)
+                batch = dataset.get_batch(idx)
+                if rows is not None:
+                    batch = tuple(rows.take(t) for t in batch)
             else:
-                items = [dataset[int(i)] for i in idx]
-                yield tuple(np.stack(col) for col in zip(*items))
+                items = [dataset[int(i)] for i in (idx if rows is None else rows.take(idx))]
+                batch = tuple(np.stack(col) for col in zip(*items))
+            yield batch if rows is None else (rows, batch)
 
-    def train_dataloader(self):
+    def train_dataloader(self, rows_of=None):
         self._epoch += 1
         if hasattr(self.train_dataset, "set_epoch"):
             self.train_dataset.set_epoch(self._epoch)
-        return self._iterate(self.train_dataset, self.train_batch_size, True)
+        return self._iterate(self.train_dataset, self.train_batch_size, True, rows_of)
 
-    def val_dataloader(self):
-        return self._iterate(self.val_dataset, self.train_batch_size, False)
+    def val_dataloader(self, rows_of=None):
+        return self._iterate(self.val_dataset, self.train_batch_size, False, rows_of)
 
-    def test_dataloader(self):
-        return self._iterate(self.test_dataset, self.test_batch_size, False)
+    def test_dataloader(self, rows_of=None):
+        return self._iterate(self.test_dataset, self.test_batch_size, False, rows_of)

@@ -39,9 +39,10 @@ def make_tcn(
     device=None,
     **_ignored,
 ) -> ModelWrapper:
-    """``remat`` is the JAX package's memory workaround for the backward
-    pass (``remfx_tpu/models/tcn.py:73-76``); inference has nothing to
-    rematerialise, so the key is accepted and unused here."""
+    """``remat`` checkpoints each block in train mode
+    (``torch.utils.checkpoint``), the JAX package's ``nn.remat``
+    (``remfx_tpu/models/tcn.py:73-81``): the backward pass recomputes a
+    block's activations from its input instead of keeping them."""
     module = TCN(
         ninputs=ninputs,
         noutputs=noutputs,
@@ -52,6 +53,7 @@ def make_tcn(
         stack_size=stack_size,
         dilation_growth=dilation_growth,
         causal=causal,
+        remat=remat,
     )
     return ModelWrapper(module, name="tcn").to(resolve_device(device)).eval()
 

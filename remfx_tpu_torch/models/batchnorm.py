@@ -7,12 +7,20 @@ batch`` with that same **biased** variance; torch's ``BatchNorm2d``
 stores the unbiased one. Eval mode is torch's (the running statistics),
 unchanged bit for bit, and so are the state-dict names, which the weight
 bridges of ``compat/from_jax.py`` fill.
+
+Under data parallelism a rank holds part of the batch. Inside
+``parallel.split_batch`` of a split batch, the mean and ``E[x^2]`` are the
+global batch's (the ranks' sums all-reduced over ``dp``, differentiably),
+as the JAX package's are under GSPMD, so the output, the gradients and
+the running statistics are one device's on the whole batch.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from remfx_tpu_torch.parallel.mesh import batch_means, current_split
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -23,8 +31,12 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         xf = x.float()
         axes = (0, 2, 3)
-        mean = xf.mean(axes)
-        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        rows = current_split()
+        if rows is None:
+            mean, ex2 = xf.mean(axes), (xf * xf).mean(axes)
+        else:
+            mean, ex2 = batch_means([xf, xf * xf], axes, rows)
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)

@@ -19,7 +19,8 @@ with ``specaugment`` each example gets one frequency and one time mask
 (``remfx_tpu/models/cnn14.py:55-61,106-117``): width ~ U[0, param), start
 ~ U[0, length - width), drawn from the ``generator`` passed to
 ``forward`` (the default generator when none is). Dropout draws from
-torch's default generator. At another ``sample_rate`` the input is
+torch's default generator. A rank's part of a split batch draws both at
+the global batch's shape and keeps its rows. At another ``sample_rate`` the input is
 resampled to ``model_sample_rate`` first (``ops/resample.py``).
 """
 
@@ -32,6 +33,7 @@ from torch import nn
 from remfx_tpu_torch.models.batchnorm import BatchNorm2d
 from remfx_tpu_torch.ops.mel import MelSpectrogram
 from remfx_tpu_torch.ops.resample import resample
+from remfx_tpu_torch.parallel.mesh import current_split
 
 
 class ConvBlock(nn.Module):
@@ -122,10 +124,15 @@ class Cnn14(nn.Module):
             x = resample(x, int(self.sample_rate), int(self.model_sample_rate))
         m = self.melspec(x)  # (B, mel, time)
         if self.specaugment and self.training:
-            fmask, tmask = draw_masks(generator, m.shape[0], m.shape[1], m.shape[2],
-                                      self.freq_mask_param, self.time_mask_param,
-                                      m.device)
-            m = apply_masks(m, fmask, tmask)
+            # a rank's part of a split batch draws the global batch's
+            # masks and keeps its rows, so N ranks draw as one device
+            rows = current_split()
+            n = m.shape[0] if rows is None else rows.total
+            masks = draw_masks(generator, n, m.shape[1], m.shape[2],
+                               self.freq_mask_param, self.time_mask_param, m.device)
+            if rows is not None:
+                masks = [rows.take(t) for t in masks]
+            m = apply_masks(m, *masks)
         # per-example standardisation over (mel, time), ddof=1 like torch.std
         mean = m.mean(dim=(1, 2), keepdim=True)
         n = m.shape[1] * m.shape[2]
@@ -138,10 +145,21 @@ class Cnn14(nn.Module):
         h = self.front_end(x, generator)[:, None]  # (B, 1, mel, time)
         for i in range(1, 6):
             h = getattr(self, f"conv_block{i}")(h, (2, 2))
-            h = F.dropout(h, 0.2, self.training)
-        h = F.dropout(self.conv_block6(h, (1, 1)), 0.2, self.training)
+            h = dropout(h, 0.2, self.training)
+        h = dropout(self.conv_block6(h, (1, 1)), 0.2, self.training)
         # (B, C, mel', time'): reduce time (mean), then mel (max + mean)
         h = h.mean(dim=3)
         h = h.max(dim=2).values + h.mean(dim=2)
-        h = F.dropout(h, 0.5, self.training)
+        h = dropout(h, 0.5, self.training)
         return F.relu(self.fc1(h))
+
+
+def dropout(h: torch.Tensor, p: float, training: bool) -> torch.Tensor:
+    """``F.dropout``; a rank's part of a split batch (``parallel.split_batch``)
+    draws the global batch's mask, as ``F.dropout`` of a tensor of that
+    shape does, and keeps its rows, so N ranks drop what one device does."""
+    rows = current_split()
+    if not training or rows is None:
+        return F.dropout(h, p, training)
+    scale = F.dropout(h.new_ones((rows.total,) + h.shape[1:]), p, True)
+    return h * rows.take(scale)

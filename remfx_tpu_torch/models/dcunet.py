@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from remfx_tpu_torch.models.batchnorm import BatchNorm2d
+from remfx_tpu_torch.parallel.mesh import batch_means, current_split
 
 # (in_chan, out_chan, kernel (F, T), stride (F, T)) per encoder stage;
 # paddings are asteroid "auto" = (k - 1) // 2
@@ -200,7 +201,8 @@ class ComplexBatchNorm(nn.Module):
     with asteroid's names: weight (C, 3) = [Wrr, Wri, Wii], bias (C, 2),
     running_mean (C, 2), running_covar (C, 3). Eval whitens with the
     running covariance; train with the batch's, and updates the running
-    statistics at ``momentum``."""
+    statistics at ``momentum``. A rank's part of a split batch
+    (``parallel.split_batch``) takes the global batch's statistics."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -221,11 +223,17 @@ class ComplexBatchNorm(nn.Module):
 
         axes = (0, 2, 3)
         if self.training:
-            mr, mi = xr.mean(axes), xi.mean(axes)
+            rows = current_split()
+            if rows is None:
+                def means(*ts):
+                    return [t.mean(axes) for t in ts]
+            else:  # a rank's part of the batch: the global batch's means
+                def means(*ts):
+                    return batch_means(ts, axes, rows)
+            mr, mi = means(xr, xi)
             cr, ci = xr - bc(mr), xi - bc(mi)
-            vrr = (cr * cr).mean(axes) + self.eps
-            vii = (ci * ci).mean(axes) + self.eps
-            vri = (cr * ci).mean(axes)
+            vrr, vii, vri = means(cr * cr, ci * ci, cr * ci)
+            vrr, vii = vrr + self.eps, vii + self.eps
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(

@@ -10,12 +10,19 @@ and ``tanh``. Channel-first ``(B, C, T)`` throughout; the output is
 State-dict names are the reference's (``process_blocks.{n}.conv1``,
 ``.relu``, ``.res`` and ``output``), so ``compat.from_jax.tcn_state_dict``
 is the plain inverse of ``remfx_tpu/compat/torch_import.py:convert_tcn``.
+
+``remat`` is the JAX package's ``nn.remat`` of each block
+(``remfx_tpu/models/tcn.py:73-81``): in train mode each block runs under
+``torch.utils.checkpoint``, so the backward pass keeps only the blocks'
+inputs and recomputes the rest (at 16 x 256 x 262144, one fp32 block
+activation is 4.3 GB). The values are the same; eval is unchanged.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from remfx_tpu_torch.utils.crop import causal_crop, center_crop
 
@@ -49,8 +56,10 @@ class TCN(nn.Module):
     def __init__(self, ninputs: int = 1, noutputs: int = 1, nblocks: int = 4,
                  channel_growth: int = 0, channel_width: int = 32,
                  kernel_size: int = 13, stack_size: int = 10,
-                 dilation_growth: int = 10, causal: bool = False):
+                 dilation_growth: int = 10, causal: bool = False,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.kernel_size = kernel_size
         self.nblocks = nblocks
         self.stack_size = stack_size
@@ -70,8 +79,9 @@ class TCN(nn.Module):
 
     def forward(self, x):
         """x: (B, C_in, T) -> (B, C_out, T - receptive_field + 1)."""
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for block in self.process_blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return torch.tanh(self.output(x))
 
     def compute_receptive_field(self) -> int:

@@ -16,6 +16,11 @@ counters). A save replaces the live directory through ``name.tmp`` and
 ``name.old`` renames, so a crash never leaves ``name`` half written; the
 ``.tmp`` directory is itself renamed into place only once complete.
 
+Under data parallelism every rank gathers the state (the full tensors of
+a module sharded by FSDP2, under its own names: ``TrainState.state_dict``)
+and rank 0 alone writes (``writer``); the others wait for the files, so
+``state.pt`` is one device's and a run resumes on any number of devices.
+
 The JAX package's orbax checkpoints (the vendored ``ckpts/`` and its
 training runs) are read without JAX by ``compat/ocdbt.py``:
 ``restore_tree`` gives a directory's raw tree; ``load_trained_wrapper``
@@ -32,26 +37,33 @@ import shutil
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from remfx_tpu_torch.compat import from_jax, ocdbt, torch_import
 
 STATE_FILE = "state.pt"
 
 
-def _write(directory: Path, state) -> None:
+def _write(directory: Path, state_dict: dict) -> None:
     """``state.pt`` into ``directory``, which appears only when complete."""
     partial = directory.with_name(directory.name + ".partial")
     if partial.exists():
         shutil.rmtree(partial)
     partial.mkdir(parents=True)
-    torch.save(state.state_dict(), partial / STATE_FILE)
+    torch.save(state_dict, partial / STATE_FILE)
     partial.rename(directory)
 
 
 class CheckpointManager:
-    def __init__(self, ckpt_dir: str, monitor: str = "valid_loss", mode: str = "min"):
+    """``writer``: whether this process writes (rank 0 of a process group;
+    every rank takes part in a save, and returns once the files exist)."""
+
+    def __init__(self, ckpt_dir: str, monitor: str = "valid_loss", mode: str = "min",
+                 writer: bool = True):
         self.dir = Path(ckpt_dir).resolve()
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.writer = writer
+        if writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.monitor = monitor
         self.mode = mode
         self.best = None
@@ -61,28 +73,30 @@ class CheckpointManager:
             return True
         return value < self.best if self.mode == "min" else value > self.best
 
-    def _save(self, name: str, state):
-        # write beside the live checkpoint, then swap by renames, so a
-        # preemption mid-save never leaves `name` missing or half-written
-        final = self.dir / name
-        tmp = self.dir / f"{name}.tmp"
-        old = self.dir / f"{name}.old"
-        for p in (tmp, old):
-            if p.exists():
-                shutil.rmtree(p)
-        _write(tmp, state)
-        if final.exists():
-            final.rename(old)
-        tmp.rename(final)
-        if old.exists():
-            shutil.rmtree(old)
+    def _save(self, name: str, state, meta: dict):
+        state_dict = state.state_dict()  # a collective under FSDP2
+        if self.writer:
+            # write beside the live checkpoint, then swap by renames, so a
+            # preemption mid-save never leaves `name` missing or half-written
+            final = self.dir / name
+            tmp = self.dir / f"{name}.tmp"
+            old = self.dir / f"{name}.old"
+            for p in (tmp, old):
+                if p.exists():
+                    shutil.rmtree(p)
+            _write(tmp, state_dict)
+            if final.exists():
+                final.rename(old)
+            tmp.rename(final)
+            if old.exists():
+                shutil.rmtree(old)
+            (self.dir / f"{name}_meta.json").write_text(json.dumps(meta))
+        if dist.is_initialized():
+            dist.barrier()
 
     def save_last(self, state, step: int, epoch: int = 0,
                   run_tag: str | None = None):
-        self._save("last", state)
-        (self.dir / "last_meta.json").write_text(
-            json.dumps({"step": step, "epoch": epoch, "run_tag": run_tag})
-        )
+        self._save("last", state, {"step": step, "epoch": epoch, "run_tag": run_tag})
 
     def maybe_save_best(self, state, metrics: dict, step: int) -> bool:
         if self.monitor not in metrics:
@@ -90,10 +104,7 @@ class CheckpointManager:
         value = float(metrics[self.monitor])
         if self._is_better(value):
             self.best = value
-            self._save("best", state)
-            (self.dir / "best_meta.json").write_text(
-                json.dumps({"step": step, self.monitor: value})
-            )
+            self._save("best", state, {"step": step, self.monitor: value})
             return True
         return False
 

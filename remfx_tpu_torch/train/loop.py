@@ -7,18 +7,35 @@ checkpointing -> test with the best checkpoint.
 
 The run's device comes from ``accelerator`` (``device_of``): ``"cpu"``
 is the host; anything else is the card, and asking for it without one
-raises. Training is one process on one device: ``trainer.devices > 1``
-(the JAX package's mesh) waits for DDP (ROADMAP.md §A10).
+raises.
+
+``trainer.devices = N > 1`` is the JAX package's ``(dp, tp)`` mesh over N
+devices (``tp = trainer.tensor_parallel``), run as one process per device
+(``parallel/launch.py``: NCCL on the cards, gloo on the CPU). Called with
+no process group, ``fit`` and ``test`` start N ranks and return rank 0's
+metrics; in a rank (or under ``torchrun``) they run that rank's part:
+
+  * data: every rank draws the one device's global batch and keeps its
+    rows (``parallel.batch_rows``: ragged training batches trimmed to a
+    ``dp`` multiple, batches smaller than ``dp`` and ragged evaluation
+    batches replicated); the model is rank 0's, replicated, and sharded
+    over ``tp`` by FSDP2 when ``tp > 1`` (``_shard_state``);
+  * metrics: all-reduced as means, so every rank holds the global ones;
+  * files: rank 0 alone renders the offline datasets, logs, and writes
+    the checkpoints (full tensors under the module's names, so a run
+    resumes on another number of devices); the other ranks wait for it.
 """
 
 from __future__ import annotations
 
 import json
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from remfx_tpu_torch.data.datasets import (
     DynamicEffectDataset,
@@ -28,6 +45,12 @@ from remfx_tpu_torch.data.datasets import (
 )
 from remfx_tpu_torch.models import make_cnn14, make_model
 from remfx_tpu_torch.models.embedding_classifiers import make_embedding_classifier
+from remfx_tpu_torch.models.tcn import TCN
+from remfx_tpu_torch.models.wrappers import ModelWrapper
+from remfx_tpu_torch.parallel import launch
+from remfx_tpu_torch.parallel.mesh import (all_reduce_mean_, batch_rows, make_mesh,
+                                           mesh_shape, replicate, shard_params_channels,
+                                           shard_tcn_params)
 from remfx_tpu_torch.train import checkpoint
 from remfx_tpu_torch.train.checkpoint import CheckpointManager, find_latest_run, restore_from
 from remfx_tpu_torch.train.loggers import make_logger
@@ -40,16 +63,121 @@ from remfx_tpu_torch.utils.logging import get_logger
 log = get_logger(__name__)
 
 
+def _device_type(cfg: dict) -> str:
+    return "cpu" if cfg.get("accelerator") == "cpu" else "cuda"
+
+
 def device_of(cfg: dict) -> torch.device:
-    """``accelerator: cpu`` -> the host; anything else -> the card."""
-    if int(cfg["trainer"].get("devices", 1) or 1) > 1:
-        raise NotImplementedError(
-            "trainer.devices > 1 needs DDP, which is not ported yet "
-            "(ROADMAP.md §A10); train on one device")
-    return resolve_device("cpu" if cfg.get("accelerator") == "cpu" else None)
+    """``accelerator: cpu`` -> the host; anything else -> the card (in a
+    process group, this rank's: ``cuda:{local rank}``)."""
+    if _device_type(cfg) == "cuda" and dist.is_initialized():
+        return resolve_device(torch.device("cuda", torch.cuda.current_device()))
+    return resolve_device("cpu" if _device_type(cfg) == "cpu" else None)
+
+
+def _devices(cfg: dict) -> int:
+    return int(cfg["trainer"].get("devices", 1) or 1)
+
+
+def build_mesh(cfg: dict):
+    """``trainer.devices > 1`` -> a ``(dp, tp)`` mesh over exactly that many
+    of the devices present (``tp = trainer.tensor_parallel``), one rank
+    each; None for one device outside a process group."""
+    devices = _devices(cfg)
+    tp = int(cfg["trainer"].get("tensor_parallel", 1) or 1)
+    if devices <= 1 and not dist.is_initialized():
+        return None
+    launch.check_devices(devices, _device_type(cfg))
+    if not dist.is_initialized():
+        raise RuntimeError(f"trainer.devices={devices} runs one process per device: "
+                           "start it through fit / test or under torchrun")
+    if dist.get_world_size() != devices:
+        raise ValueError(f"trainer.devices={devices} but the process group has "
+                         f"{dist.get_world_size()} ranks")
+    return make_mesh(dp=devices // tp, tp=tp)
+
+
+def _spawns(cfg: dict) -> bool:
+    """Whether this call starts the ranks (more than one device asked for,
+    and this process is not one of a group)."""
+    return _devices(cfg) > 1 and not dist.is_initialized()
+
+
+def _rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier():
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _from_rank0(fn):
+    """``fn()`` computed by rank 0 alone and handed to every rank."""
+    value = [fn() if _rank0() else None]
+    if dist.is_initialized():
+        dist.broadcast_object_list(value, src=0)
+    return value[0]
+
+
+def _rank0_first(fn, cfg: dict):
+    """``fn(cfg)`` on rank 0, then on the other ranks with
+    ``render_files=false``: rank 0 alone renders the offline datasets."""
+    if _rank0():
+        out = fn(cfg)
+    _barrier()
+    if not _rank0():
+        out = fn({**cfg, "render_files": False})
+    return out
+
+
+class _Silent:
+    """The logger of every rank but 0."""
+
+    def log_hyperparams(self, *_):
+        pass
+
+    log_metrics = log_audio = close = log_hyperparams
+
+
+def _logger(cfg: dict):
+    return make_logger(cfg.get("logger", "csv"), cfg["logs_dir"]) if _rank0() else _Silent()
+
+
+def _shard_state(task, state, mesh):
+    """Rank 0's model on every rank; over ``tp > 1`` its parameters,
+    gradients and AdamW state sharded by FSDP2 (a new optimizer over the
+    sharded parameters takes the old one's state). -> the state."""
+    task.mesh = mesh
+    model = _model(task)
+    replicate(model, mesh)
+    if mesh_shape(mesh)["tp"] == 1:
+        return state
+    full = state.state_dict()
+    net = model.module if isinstance(model, ModelWrapper) else model
+    shard = shard_tcn_params if isinstance(net, TCN) else shard_params_channels
+    half = getattr(task, "_half", False)
+    shard(net, mesh, torch.bfloat16 if half else None)
+    sharded = task.init_state()
+    sharded.load_state_dict(full)
+    return sharded
+
+
+def _mean_over_ranks(metrics: dict) -> dict:
+    """The metrics (0-d tensors or floats) as floats, averaged over every
+    rank: after the trim each holds as many rows, so the mean of the
+    ranks' means is the global batch's."""
+    if not dist.is_initialized():
+        return {k: float(v) for k, v in metrics.items()}
+    keys = list(metrics)
+    dev = "cpu" if dist.get_backend() == "gloo" else torch.cuda.current_device()
+    v = torch.tensor([float(metrics[k]) for k in keys], dtype=torch.float64, device=dev)
+    all_reduce_mean_([v])
+    return dict(zip(keys, v.tolist()))
 
 
 def build_datamodule(cfg: dict, device=None) -> EffectDatamodule:
+    """The datamodule of ``cfg``, its renders on ``device``."""
     dm = cfg["datamodule"]
     device = device_of(cfg) if device is None else device
     common = dict(
@@ -165,9 +293,11 @@ def _mean_logs(rows: list[dict]) -> dict:
 
 def evaluate(task, state, loader, prefix="valid", log_audio_to=None,
              sample_rate=48000, step=0):
+    """Means of ``task.eval_step`` over ``loader``'s ``(rows, batch)``
+    pairs, averaged over the ranks in a process group."""
     rows = []
     first = True
-    for batch in loader:
+    for _, batch in loader:
         b = _adapt_batch(task, batch)
         rows.append(task.eval_step(state, b, prefix))
         if first and log_audio_to is not None and not isinstance(task, ClassifierTask):
@@ -184,7 +314,7 @@ def evaluate(task, state, loader, prefix="valid", log_audio_to=None,
                                    np.concatenate([pred, silence, xc, silence, yc], -1),
                                    sample_rate, step)
         first = False
-    out = _mean_logs(rows)
+    out = _mean_over_ranks(_mean_logs(rows))
     # epoch-style alias used by classifier checkpointing configs
     if f"{prefix}_avg_acc" in out:
         out[f"{prefix}_avg_acc_epoch"] = out[f"{prefix}_avg_acc"]
@@ -203,11 +333,27 @@ def _run_tag(cfg: dict) -> str:
     ])
 
 
+def rank_fit(cfg: dict) -> dict:
+    """One rank's ``fit`` (the function ``parallel.launch`` runs). -> the
+    test metrics."""
+    return fit(cfg)[1]
+
+
+def rank_test(cfg: dict) -> dict:
+    """One rank's ``test`` (the function ``parallel.launch`` runs)."""
+    return test(cfg)
+
+
 def fit(cfg: dict):
     """Train, validate each epoch, checkpoint, then test the best
-    checkpoint. -> (state, test metrics)."""
+    checkpoint. -> (state, test metrics); ``(None, rank 0's metrics)``
+    from a call that starts ``trainer.devices`` ranks."""
+    if _spawns(cfg):
+        out = launch.spawn(rank_fit, _devices(cfg), cfg, device_type=_device_type(cfg))
+        return None, out[0]
+    mesh = build_mesh(cfg)
     device = device_of(cfg)
-    datamodule = build_datamodule(cfg, device)
+    datamodule = _rank0_first(partial(build_datamodule, device=device), cfg)
     task = build_task(cfg, device)
     state = task.init_state()
     # the JAX package draws its init batch here, which takes one
@@ -228,7 +374,7 @@ def fit(cfg: dict):
             # in this logs_dir, keeping the step counter and best-metric
             # watermark. Checked before warm_start, so that a preempted
             # warm-started fine-tune resumes its own progress
-            prior = find_latest_run(cfg["logs_dir"])
+            prior = _from_rank0(lambda: find_latest_run(cfg["logs_dir"]))
             if prior is not None:
                 meta = json.loads((prior / "last_meta.json").read_text())
                 # another experiment's checkpoint in the same logs_dir
@@ -259,17 +405,21 @@ def fit(cfg: dict):
             # continue the data sequence instead of replaying epochs
             # (+1: the call above already took one dataloader epoch)
             datamodule.set_epoch(start_epoch + 1)
+    if mesh is not None:
+        state = _shard_state(task, state, mesh)
+        log.info("multi-device training: mesh %s", mesh_shape(mesh))
 
-    logger = make_logger(cfg.get("logger", "csv"), cfg["logs_dir"])
+    logger = _logger(cfg)
     n_params = sum(p.numel() for p in _model(task).parameters())
     logger.log_hyperparams({**cfg, "model/params/total": n_params,
                             "model/params/trainable": n_params})
     log.info("model parameters: %s", f"{n_params:,}")
     mc = cfg["callbacks"]["model_checkpoint"]
     ckpts = CheckpointManager(
-        Path(cfg["logs_dir"]) / "ckpts" / time.strftime("%Y-%m-%d-%H-%M-%S"),
+        Path(cfg["logs_dir"]) / "ckpts" / _from_rank0(lambda: time.strftime("%Y-%m-%d-%H-%M-%S")),
         monitor=mc.get("monitor", "valid_loss"),
         mode=mc.get("mode", "min"),
+        writer=_rank0(),
     )
     if resume_best is not None and ckpts.monitor in resume_best:
         ckpts.best = float(resume_best[ckpts.monitor])
@@ -294,7 +444,9 @@ def fit(cfg: dict):
     epoch = start_epoch
     t0 = time.time()
     prof = None
-    if cfg.get("profile"):
+    rows_of = partial(batch_rows, mesh=mesh)
+    eval_rows_of = partial(batch_rows, mesh=mesh, strict=False)
+    if cfg.get("profile") and _rank0():
         # a torch.profiler trace of the training loop, for chrome://tracing
         acts = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
@@ -302,22 +454,22 @@ def fit(cfg: dict):
         prof = torch.profiler.profile(activities=acts)
         prof.start()
     while step < max_steps and (max_epochs < 0 or epoch < max_epochs):
-        for batch in datamodule.train_dataloader():
-            state, metrics = task.train_step(state, _adapt_batch(task, batch))
+        for rows, batch in datamodule.train_dataloader(rows_of):
+            state, metrics = task.train_step(state, _adapt_batch(task, batch), rows)
             heartbeat.beat()
             micro += 1
             if micro % accum:
                 continue
             step += 1
             if step % log_every == 0:
-                metrics = {k: float(v) for k, v in metrics.items()}
+                metrics = _mean_over_ranks(metrics)
                 metrics["steps_per_sec"] = (step - start_step) / (time.time() - t0)
                 logger.log_metrics(metrics, step)
             if step >= max_steps:
                 break
         epoch += 1
         val_metrics = evaluate(
-            task, state, datamodule.val_dataloader(), "valid",
+            task, state, datamodule.val_dataloader(eval_rows_of), "valid",
             log_audio_to=logger if cfg.get("log_audio") else None,
             sample_rate=cfg["sample_rate"], step=step,
         )
@@ -347,7 +499,7 @@ def fit(cfg: dict):
         restore_from(str(prior / "best"), state)
     else:
         log.warning("no best checkpoint; testing final state")
-    test_metrics = evaluate(task, state, datamodule.test_dataloader(), "test")
+    test_metrics = evaluate(task, state, datamodule.test_dataloader(eval_rows_of), "test")
     logger.log_metrics(test_metrics, step)
     log.info("test: %s", {k: round(v, 4) for k, v in test_metrics.items()})
     logger.close()
@@ -356,15 +508,22 @@ def fit(cfg: dict):
 
 def test(cfg: dict):
     """Evaluate the test set, from ``ckpt_path`` when the config names one.
-    -> the test metrics."""
+    -> the test metrics (rank 0's from a call that starts the ranks)."""
+    if _spawns(cfg):
+        return launch.spawn(rank_test, _devices(cfg), cfg, device_type=_device_type(cfg))[0]
+    mesh = build_mesh(cfg)
     device = device_of(cfg)
-    datamodule = build_datamodule(cfg, device)
+    datamodule = _rank0_first(partial(build_datamodule, device=device), cfg)
     task = build_task(cfg, device)
     state = task.init_state()
     if cfg.get("ckpt_path"):
         restore_from(cfg["ckpt_path"], state)
-    logger = make_logger(cfg.get("logger", "csv"), cfg["logs_dir"])
-    metrics = evaluate(task, state, datamodule.test_dataloader(), "test")
+    if mesh is not None:
+        state = _shard_state(task, state, mesh)
+    logger = _logger(cfg)
+    metrics = evaluate(task, state,
+                       datamodule.test_dataloader(partial(batch_rows, mesh=mesh, strict=False)),
+                       "test")
     logger.log_metrics(metrics, 0)
     log.info("test: %s", {k: round(v, 4) for k, v in metrics.items()})
     logger.close()

@@ -28,6 +28,19 @@ The optimizer is optax's chain held to optax's arithmetic:
 ``TrainState`` holds the module, the optimizer, the scheduler and the
 counters (``step``: train steps taken, as flax's ``TrainState.step``;
 ``mini_step``: micro-batches accumulated, as MultiSteps' ``mini_step``).
+Its ``state_dict`` is the whole state under the module's own names,
+whatever the layout: a module sharded by FSDP2 gives its full tensors.
+
+Data parallelism (``task.mesh``, set by ``train/loop.py``): each rank
+takes its rows of the global batch (``rows``, a ``parallel.Rows``), and
+the gradients are averaged over ``dp`` in one bucketed ``all_reduce``
+before the MultiSteps mean, the clip and AdamW, in both precisions. A
+module sharded over ``tp`` (FSDP2, ``parallel.shard_params_channels``)
+has its gradients reduced by FSDP, the clip's norm reduced over the
+shards, and bf16-mixed computed by FSDP's mixed-precision policy (the
+same bf16 copies of the fp32 masters). Draws over the batch (mixup,
+SpecAugment's masks, dropout) are made at the global batch's shape and
+each rank keeps its rows, so that N ranks train as one device does.
 
 bf16-mixed (``precision="bf16-mixed"``) is the JAX package's cast, not
 ``torch.autocast``: the parameters and ``x`` are cast to bf16 inside the
@@ -43,9 +56,12 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from remfx_tpu_torch.losses import multi_resolution_stft_loss, si_sdr
+from remfx_tpu_torch.parallel.mesh import Rows, all_reduce_mean_, split_batch
 from remfx_tpu_torch.train.metrics import multilabel_f1
 from remfx_tpu_torch.utils.crop import causal_crop
 
@@ -62,30 +78,72 @@ class TrainState:
     acc_grads: list | None = field(default=None, repr=False)
 
     def state_dict(self) -> dict:
+        """The state with full tensors (a sharded module's are gathered:
+        every rank takes part)."""
+        opt = self.optimizer.state_dict()
+        opt["state"] = {i: {k: _full(v) for k, v in st.items()}
+                        for i, st in opt["state"].items()}
         return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "model": {k: _full(v) for k, v in self.model.state_dict().items()},
+            "optimizer": opt,
             "scheduler": None if self.scheduler is None else self.scheduler.state_dict(),
             "step": self.step,
             "mini_step": self.mini_step,
-            "acc_grads": self.acc_grads,
+            "acc_grads": (None if self.acc_grads is None
+                          else [_full(a) for a in self.acc_grads]),
         }
 
     def load_state_dict(self, sd: dict):
-        self.model.load_state_dict(sd["model"], strict=True)
-        self.optimizer.load_state_dict(sd["optimizer"])
+        """``sd`` of ``state_dict``, into this state's layout."""
+        own = self.model.state_dict()
+        self.model.load_state_dict({k: _like(v, own.get(k)) for k, v in sd["model"].items()},
+                                   strict=True)
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        opt = dict(sd["optimizer"])
+        opt["state"] = {i: {k: _like(v, params[i]) for k, v in st.items()}
+                        for i, st in opt["state"].items()}
+        self.optimizer.load_state_dict(opt)
         if self.scheduler is not None and sd["scheduler"] is not None:
             self.scheduler.load_state_dict(sd["scheduler"])
         self.step = int(sd["step"])
         self.mini_step = int(sd["mini_step"])
         if sd["acc_grads"] is not None:
-            self.acc_grads = [a.to(p.device) for a, p in
-                              zip(sd["acc_grads"], self.model.parameters())]
+            trained = [p for p in self.model.parameters() if p.requires_grad]
+            self.acc_grads = [_like(a, p) for a, p in zip(sd["acc_grads"], trained)]
+
+
+def _full(t):
+    """A ``DTensor``'s full value (a collective), else ``t``."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _like(value, ref):
+    """A full tensor laid out as ``ref`` (a ``DTensor`` of its shape gets
+    this rank's shard), on ``ref``'s device."""
+    if isinstance(ref, DTensor) and value.shape == ref.shape:
+        return distribute_tensor(value.to(ref.device_mesh.device_type), ref.device_mesh,
+                                 ref.placements)
+    if isinstance(ref, torch.Tensor) and value.dim() > 0:
+        return value.to(ref.device)
+    return value
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+    """sqrt of the sum of squares of every element (optax.global_norm); of
+    ``DTensor``s, the sum over every shard."""
+    tensors = list(tensors)
+    sq = sum(torch.sum(_local(t).float() * _local(t).float()) for t in tensors)
+    sharded = [t for t in tensors if isinstance(t, DTensor)]
+    if sharded:
+        mesh, placements = sharded[0].device_mesh, sharded[0].placements
+        for dim, placement in enumerate(placements):
+            if placement.is_shard():
+                dist.all_reduce(sq, group=mesh.get_group(dim))
+    return torch.sqrt(sq)
 
 
 @torch.no_grad()
@@ -95,7 +153,7 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     the norm; no host sync."""
     norm = global_norm(grads)
     keep = norm < max_norm
-    for g in grads:
+    for g in map(_local, grads):
         g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
     return norm
 
@@ -124,10 +182,21 @@ class _Optimizing:
 
     accumulate_grad_batches = 1
     gradient_clip_val = 10.0
+    mesh = None  # the (dp, tp) DeviceMesh of data parallelism, or None
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the parameters are sharded over ``tp`` (FSDP2)."""
+        return self.mesh is not None and self.mesh.size(1) > 1
+
+    def _rows(self, batch, rows):
+        return Rows(0, batch[0].shape[0], batch[0].shape[0]) if rows is None else rows
 
     def _apply_gradients(self, state: TrainState):
         params = [p for p in state.model.parameters() if p.requires_grad]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        if self.mesh is not None and not self.sharded:
+            all_reduce_mean_(grads, self.mesh.get_group("dp"))
         k = self.accumulate_grad_batches
         state.step += 1
         if k > 1:
@@ -155,14 +224,20 @@ class _Optimizing:
 
 class _LossCall(nn.Module):
     """``wrapper.loss_and_output`` as a module's forward, for
-    ``torch.func.functional_call`` with bf16 copies of the parameters."""
+    ``torch.func.functional_call`` with bf16 copies of the parameters; with
+    ``backward``, the backward pass runs inside the call too, so that a
+    block checkpointed by ``remat`` recomputes with the same bf16 copies."""
 
-    def __init__(self, wrapper):
+    def __init__(self, wrapper, backward: bool = False):
         super().__init__()
         self.w = wrapper
+        self.backward = backward
 
     def forward(self, batch):
-        return self.w.loss_and_output(batch)
+        loss, output = self.w.loss_and_output(batch)
+        if self.backward:
+            loss.float().backward()
+        return loss, output
 
 
 # ------------------------------------------------------------------ removal
@@ -217,23 +292,29 @@ class RemovalTask(_Optimizing):
             "Input_STFT": multi_resolution_stft_loss(x, y),
         }
 
-    def _loss_and_output(self, x, y):
-        if not self._half:
-            return self.wrapper.loss_and_output((x, y))
-        call = _LossCall(self.wrapper)
+    def _loss_and_output(self, x, y, backward: bool = False):
+        """-> (loss, output); with ``backward``, after the backward pass."""
+        if not self._half or self.sharded:  # FSDP's policy makes the bf16 copies
+            loss, output = self.wrapper.loss_and_output(
+                (x.to(torch.bfloat16) if self._half else x, y))
+            if backward:
+                loss.float().backward()
+            return loss, output
+        call = _LossCall(self.wrapper, backward)
         half = {f"w.{k}": v.to(torch.bfloat16) if v.dtype == torch.float32 else v
                 for k, v in self.wrapper.named_parameters()}
         return torch.func.functional_call(call, half, ((x.to(torch.bfloat16), y),),
                                           strict=False)
 
-    def train_step(self, state: TrainState, batch):
-        """One micro-batch: forward, backward and (every k-th) the update.
+    def train_step(self, state: TrainState, batch, rows: Rows | None = None):
+        """One micro-batch (this rank's ``rows`` of it under data
+        parallelism): forward, backward and (every k-th) the update.
         -> (state, metrics), the metrics as 0-d tensors on the device."""
         x, y = batch
         self.wrapper.train()
-        loss, output = self._loss_and_output(x, y)
+        with split_batch(self._rows(batch, rows)):
+            loss, output = self._loss_and_output(x, y, backward=True)
         loss = loss.float()
-        loss.backward()
         self._apply_gradients(state)
         with torch.no_grad():
             metrics = self._metrics(output.detach().float(), x, y, loss.detach(), "train")
@@ -268,6 +349,13 @@ def mixup(generator, x, y):
     do = torch.rand((), generator=generator) > 0.5
     dev = x.device
     return mixup_from_draws(x, y, lam.to(dev), index.to(dev), do.to(dev))
+
+
+def _gather(t, group):
+    """The ranks' equal parts of ``t`` over ``group``, in rank order."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts)
 
 
 def _bce(probs, targets, eps=1e-7):
@@ -346,12 +434,18 @@ class ClassifierTask(_Optimizing):
         metrics[f"{prefix}_avg_acc"] = torch.stack(accs).mean()
         return loss, metrics
 
-    def train_step(self, state: TrainState, batch):
+    def train_step(self, state: TrainState, batch, rows: Rows | None = None):
         x, labels = batch
+        rows = self._rows(batch, rows)
         if self.use_mixup:
+            if rows.split:  # mix with the global batch, keep this rank's rows
+                x, labels = (_gather(t, rows.group) for t in (x, labels))
             x, labels = mixup(self.generator, x, labels)
+            if rows.split:
+                x, labels = rows.take(x), rows.take(labels)
         self.network.train()
-        probs = self.network(x, generator=self.generator)
+        with split_batch(rows):
+            probs = self.network(x, generator=self.generator)
         loss, metrics = self._loss_and_metrics(probs, labels, "train")
         loss.backward()
         self._apply_gradients(state)

@@ -29,6 +29,9 @@ CHANNEL_PATH = (
     "fx.phaser", "ops.phaser", "fx.sox_reverb", "fx.chain",
     "models.embedding_classifiers", "cli.generate_dataset", "cli.eval_matrix",
 )
+PARALLEL_PATH = (
+    "parallel", "parallel.mesh", "parallel.launch", "parallel.steps", "chain.pipeline",
+)
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|flax|remfx_tpu|orbax|tensorstore|zstandard)\b")
 
@@ -57,9 +60,9 @@ def test_import_leaves_jax_out():
     assert out.returncode == 0, out.stderr
     # every module of the port was imported, the training path's too
     names = set(out.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 76
-    assert {f"remfx_tpu_torch.{m}"
-            for m in TRAINING_PATH + CHAIN_PATH + BACKBONE_PATH + CHANNEL_PATH} <= names
+    assert len(names) >= 81
+    assert {f"remfx_tpu_torch.{m}" for m in TRAINING_PATH + CHAIN_PATH + BACKBONE_PATH
+            + CHANNEL_PATH + PARALLEL_PATH} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

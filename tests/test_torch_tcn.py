@@ -86,3 +86,29 @@ def test_tcn_state_dict_loads_strict_and_rejects_leftovers(pair):
     extra = {"params": dict(variables["params"], stray={"kernel": np.zeros(3)})}
     with pytest.raises(ValueError, match="stray"):
         tcn_state_dict(extra)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["noncausal", "causal"])
+def test_remat_equals_no_remat_bit_for_bit(causal):
+    """``remat`` (each block under ``torch.utils.checkpoint`` in train mode)
+    recomputes the blocks' activations in the backward pass: the forward
+    and every gradient equal the network without it bit for bit, and eval
+    mode does not checkpoint."""
+    torch.manual_seed(0)
+    plain = TCN(causal=causal, **CFG)
+    remat = TCN(causal=causal, remat=True, **CFG)
+    remat.load_state_dict(plain.state_dict())
+    x = torch.from_numpy(_audio(seed=2))
+    outs = []
+    for net in (plain, remat):
+        xi = x.clone().requires_grad_(True)
+        y = net.train()(xi)
+        (y * torch.linspace(-1, 1, y.shape[-1])).sum().backward()
+        outs.append((y.detach(), xi.grad, [p.grad for p in net.parameters()]))
+    (y0, gx0, g0), (y1, gx1, g1) = outs
+    assert torch.equal(y0, y1) and torch.equal(gx0, gx1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert make_tcn(device="cpu", **CFG).module.remat  # the JAX default
+    assert not make_tcn(device="cpu", remat=False, **CFG).module.remat
+    with torch.no_grad():
+        assert torch.equal(remat.eval()(x), plain.eval()(x))

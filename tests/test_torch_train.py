@@ -479,9 +479,13 @@ def test_unported_models_raise(model):
 
 
 def test_more_than_one_device_raises():
-    cfg = tcore.parse_cli(["+exp=distortion", "accelerator=cpu", "trainer.devices=2"])
-    with pytest.raises(NotImplementedError, match="A10"):
+    """More devices than there are raise, naming ``devices``, before any
+    rank starts (two CPU ranks train: tests/test_torch_parallel_fit.py)."""
+    cfg = tcore.parse_cli(["+exp=distortion", "accelerator=cpu", "trainer.devices=100000"])
+    with pytest.raises(ValueError, match="devices"):
         fit(cfg)
+    with pytest.raises(ValueError, match="devices"):
+        tloop.test({**cfg, "train": False})
 
 
 def test_entry_point_defaults_to_the_card():
