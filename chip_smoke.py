@@ -151,10 +151,20 @@ alone, e.g. on four cards):
   bf16-mixed step with remat at 16 x 262144. PipelineChain of the seeded
   five-slot chain over the cards on 4 windows of the demo batch, each
   equal to ChainInference.run bit for bit, its wall time beside 4
-  sequential run calls. Where there are two cards or more, a dp x tp
-  (FSDP2) step of that TCN at 8 x 131072 against one process.
+  sequential run calls. Sequence-parallel inference of one long file (the
+  stream part's four clips joined, 1 x 1 x 1048576) with the seeded
+  five-slot chain: every backbone's time plan (parallel/sequence.py) run
+  window by window as 4 ranks would hold it, on one card, against the
+  whole file (the TCN's and the DCUNets' halo plans within 1e-5 x the
+  output's RMS, the gather plans of HDemucs bit for bit); then shard_time
+  over every card, sample_time_sharded of the TCN and a DCUNet and
+  run_time_sharded with every label on and with detection against the
+  whole file on one card, with the wall times, peaks and halos. Where
+  there are two cards or more, a dp x tp (FSDP2) step of that TCN at 8 x
+  131072 against one process.
 
-Usage: python3 chip_smoke.py [--seed N] [--only parallel]
+Usage: python3 chip_smoke.py [--seed N] [--only parallel|sequence]
+(``--only sequence``: the sequence part of the parallel phase alone.)
 Needs one CUDA device: with none it exits non-zero and prints no result.
 """
 
@@ -205,6 +215,7 @@ from remfx_tpu_torch.ops.envelope import (envelope, envelope_flags,
                                           envelope_plain, envelope_serial)
 from remfx_tpu_torch.ops.loudness import integrated_loudness, loudness_normalize
 from remfx_tpu_torch.ops.phaser import phaser, phaser_plain
+from remfx_tpu_torch.parallel.sequence import GatherPlan, sample_windows, time_plan
 from remfx_tpu_torch.train.checkpoint import (find_latest_run, load_trained_wrapper,
                                               read_state, restore_from, restore_tree)
 from remfx_tpu_torch.train.loop import build_datamodule, build_task, fit, test
@@ -954,6 +965,13 @@ STREAM_FILES = ("example_distortion_reverb", "example_target",
 STREAM_CHUNK, STREAM_OVERLAP = 262144, 16384  # stream_chain's defaults
 
 
+def joined_clips() -> np.ndarray:
+    """The four clips of STREAM_FILES joined end to end: (1, 1048576)."""
+    joined = np.concatenate([read_wav(ROOT / "demos" / f"{f}.wav")[0]
+                             for f in STREAM_FILES], axis=-1)
+    return np.ascontiguousarray(joined, np.float32)
+
+
 def trained_dirs(root: Path = ROOT) -> tuple[tuple, tuple]:
     """(the vendored checkpoint directories the trained phase reads, the
     removal slots demo_detect's map must then have): the five of
@@ -1036,9 +1054,7 @@ def trained_phase(dev):
     check(chain_rel <= CPU_TOL, f"trained chain card vs CPU {chain_rel} <= {CPU_TOL}")
 
     # ---- stream: the same chain over four clips joined end to end ----
-    joined = np.concatenate([read_wav(ROOT / "demos" / f"{f}.wav")[0]
-                             for f in STREAM_FILES], axis=-1)
-    xs = torch.from_numpy(np.ascontiguousarray(joined, np.float32)).to(dev)
+    xs = torch.from_numpy(joined_clips()).to(dev)
     starts = _windows(xs.shape[-1], STREAM_CHUNK, STREAM_CHUNK - STREAM_OVERLAP)
     envelope.launches = 0
     torch.cuda.synchronize()
@@ -1997,10 +2013,165 @@ def tensor_parallel_part(seed: int, n: int) -> dict:
             "loss": got, "loss_rel_err": loss_rel, **states}
 
 
+SEQ_WINDOWS = 4  # the windows that 4 ranks of shard_time would hold
+SEQ_TOL = 1e-5  # x the output's RMS: a halo plan against the whole file
+
+
+def timed_ms(fn):
+    """(fn(), its wall ms), the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def plan_of(wrapper) -> dict:
+    plan = time_plan(wrapper)
+    if isinstance(plan, GatherPlan):
+        return {"plan": "gather", "why": plan.why}
+    return {"plan": "halo", "left": plan.left, "right": plan.right, "align": plan.align}
+
+
+def plan_windows(slots: dict, cls, x: torch.Tensor) -> tuple[dict, dict]:
+    """Every plan's windows on this card against the whole file: for each
+    removal backbone, the SEQ_WINDOWS windows its plan gives the ranks of
+    shard_time, each through span_sample, the owned outputs joined; a halo
+    plan within SEQ_TOL x the whole output's RMS, a gather plan bit for
+    bit. -> (per slot its plan, errors and times; the whole outputs)."""
+    out, wholes = {"Cnn14 (classifier)": plan_of(cls)}, {}
+    check(isinstance(time_plan(cls), GatherPlan), "the classifier's plan is the gather")
+    for name, w in slots.items():
+        plan = time_plan(w)
+        whole, whole_ms = timed_ms(lambda: w.sample(x))
+        got, windows_ms = timed_ms(lambda: sample_windows(w, plan, x, SEQ_WINDOWS))
+        check(got.shape == whole.shape, f"{name}: windows give {tuple(got.shape)}")
+        err = (got - whole).abs().max().item()
+        row = {**plan_of(w), "max_abs_err": err, "rel_rms_err": err / rms(whole),
+               "bit_equal": torch.equal(got, whole), "whole_ms": whole_ms,
+               "windows_ms": windows_ms, "length_out": whole.shape[-1]}
+        if isinstance(plan, GatherPlan):
+            check(row["bit_equal"], f"{name}: the gather plan's windows bit for bit")
+        else:
+            check(row["rel_rms_err"] <= SEQ_TOL,
+                  f"{name}: the halo plan's windows {row['rel_rms_err']} x RMS <= {SEQ_TOL}")
+        out[name], wholes[name] = row, whole
+    return out, wholes
+
+
+def sequence_rank(seed: int) -> dict:
+    """One rank of the time-sharded runs (``launch.spawn`` runs it in each
+    process of the NCCL group): the seeded five-slot chain of build_slots
+    and the joined file split in time over every rank; sample_time_sharded
+    of the TCN and of a DCUNet, run_time_sharded with every label on and
+    with detection, each timed after one warm-up pass, and gathered. Rank
+    0 returns the gathered outputs."""
+    import torch.distributed as dist
+
+    from remfx_tpu_torch.parallel import gather_time, make_mesh, shard_time
+    from remfx_tpu_torch.parallel.sequence import run_time_sharded, sample_time_sharded
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    envelope.launches = phaser.launches = 0
+    torch.manual_seed(seed)
+    cls, slots = build_slots(dev)
+    oracle_chain = ChainInference(slots, SR)
+    detect_chain = ChainInference(slots, SR, classifier=cls)
+    x = torch.from_numpy(joined_clips()).to(dev)[None]
+    ones = torch.ones(1, len(ALL_EFFECTS), device=dev)
+    shard = shard_time(x, make_mesh())
+    run_time_sharded(oracle_chain, shard, ones)  # warm-up: every model's first pass
+    run_time_sharded(detect_chain, shard)
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed(fn):
+        dist.barrier()
+        return timed_ms(fn)
+
+    tcn, dcunet = slots["RandomPedalboardDistortion"], slots["RandomPedalboardReverb"]
+    y_tcn, tcn_ms = timed(lambda: sample_time_sharded(tcn, shard))
+    y_dcunet, dcunet_ms = timed(lambda: sample_time_sharded(dcunet, shard))
+    (y_oracle, _), oracle_ms = timed(lambda: run_time_sharded(oracle_chain, shard, ones))
+    (y_detect, labels), detect_ms = timed(lambda: run_time_sharded(detect_chain, shard))
+    outs = {k: gather_time(y).cpu().numpy() for k, y in (
+        ("tcn", y_tcn), ("dcunet", y_dcunet), ("oracle", y_oracle), ("detect", y_detect))}
+    torch.cuda.synchronize()
+    return {"rank": dist.get_rank(), "world": dist.get_world_size(),
+            "backend": dist.get_backend(), "device": str(dev),
+            "span": [shard.start, shard.stop], "output_span": [y_oracle.start, y_oracle.stop],
+            "tcn_ms": tcn_ms, "dcunet_ms": dcunet_ms, "oracle_ms": oracle_ms,
+            "detect_ms": detect_ms, "labels": labels.tolist(),
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "envelope_launches": envelope.launches, "phaser_launches": phaser.launches,
+            "outputs": outs if dist.get_rank() == 0 else None}
+
+
+def sequence_part(seed: int, n: int) -> dict:
+    """Sequence-parallel inference of the joined file (1 x 1 x 1048576) at
+    full width: every plan's windows against the whole file on one card,
+    then shard_time over ``n`` NCCL ranks through launch.spawn, the TCN, a
+    DCUNet and the five-slot chain (every label on, and detection) against
+    the whole file on one card: within SEQ_TOL x the output's RMS, the
+    labels equal. Wall times beside the one-card run, the peaks, the halos."""
+    from remfx_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda", 0)
+    torch.manual_seed(seed)
+    cls, slots = build_slots(dev)
+    x = torch.from_numpy(joined_clips()).to(dev)[None]
+    envelope.launches = phaser.launches = 0
+    windows, wholes = plan_windows(slots, cls, x)
+    ones = torch.ones(1, len(ALL_EFFECTS), device=dev)
+    # regroup: like run_time_sharded, it runs no model for a stage that no
+    # row selects (single runs every model; the values are the same)
+    detect_chain = ChainInference(slots, SR, classifier=cls, dispatch="regroup")
+    detect_chain.run(x)  # warm-up (the windows ran every removal model)
+    torch.cuda.reset_peak_memory_stats()
+    one = {"tcn_ms": timed_ms(lambda: slots["RandomPedalboardDistortion"].sample(x))[1],
+           "dcunet_ms": timed_ms(lambda: slots["RandomPedalboardReverb"].sample(x))[1]}
+    (want_oracle, _), one["oracle_ms"] = timed_ms(lambda: ChainInference(slots, SR).remove(x, ones))
+    (want_detect, want_labels), one["detect_ms"] = timed_ms(lambda: detect_chain.run(x))
+    one["peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    want = {"tcn": wholes["RandomPedalboardDistortion"], "dcunet": wholes["RandomPedalboardReverb"],
+            "oracle": want_oracle, "detect": want_detect}
+    want = {k: v.cpu() for k, v in want.items()}
+    parent_launches = {"envelope": envelope.launches, "phaser": phaser.launches}
+    del cls, slots, detect_chain, wholes, want_oracle, want_detect
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.spawn(sequence_rank, n, seed, device_type="cuda", timeout=JOIN_S)
+    spawn_s = time.perf_counter() - t0
+    for r in ranks:
+        check(r["backend"] == "nccl" and r["device"].startswith("cuda"),
+              f"rank {r['rank']}: backend {r['backend']} on {r['device']}")
+        check(r["labels"] == want_labels.tolist(),
+              f"rank {r['rank']}: labels {r['labels']} equal one card's {want_labels.tolist()}")
+    launches = {"envelope": parent_launches["envelope"] + sum(r["envelope_launches"] for r in ranks),
+                "phaser": parent_launches["phaser"] + sum(r["phaser_launches"] for r in ranks)}
+    check(launches == {"envelope": 0, "phaser": 0}, f"the sequence path renders nothing: {launches}")
+    errs = {}
+    for k, v in want.items():
+        got = torch.from_numpy(ranks[0]["outputs"][k])
+        check(got.shape == v.shape, f"{k}: {tuple(got.shape)} against {tuple(v.shape)}")
+        errs[k] = (got - v).abs().max().item() / rms(v)
+        check(errs[k] <= SEQ_TOL, f"{k}: {n} ranks against one card {errs[k]} x RMS <= {SEQ_TOL}")
+    for r in ranks:
+        del r["outputs"]
+    keys = ("tcn_ms", "dcunet_ms", "oracle_ms", "detect_ms")
+    return {"ranks": n, "samples": x.shape[-1], "windows": windows,
+            "rel_rms_err": errs, "bit_equal": {k: e == 0.0 for k, e in errs.items()},
+            "labels": want_labels.tolist(), "one_card": one, "per_rank": ranks,
+            "slowest_rank_ms": {k: max(r[k] for r in ranks) for k in keys},
+            "speedup": {k: one[k] / max(r[k] for r in ranks) for k in keys},
+            "spawn_s": spawn_s, "envelope_launches": launches["envelope"],
+            "phaser_launches": launches["phaser"]}
+
+
 def parallel_phase(seed: int, clips: torch.Tensor) -> dict:
     """The multi-device slice on every card there is: data-parallel fit on
-    an NCCL group, the TCN's remat, PipelineChain, and dp x tp where there
-    are two cards or more."""
+    an NCCL group, the TCN's remat, PipelineChain, sequence-parallel
+    inference of one long file, and dp x tp where there are two cards or
+    more."""
     n = torch.cuda.device_count()
     out = {"cards": n}
 
@@ -2013,6 +2184,7 @@ def parallel_phase(seed: int, clips: torch.Tensor) -> dict:
         part("ddp", ddp_part, seed, Path(tmp), n)
     part("tcn_remat", tcn_remat_part, seed, torch.device("cuda", 0))
     part("pipeline", pipeline_part, seed, clips)
+    part("sequence", sequence_part, seed, n)
     out["tensor_parallel"] = None
     if n >= 2:
         part("tensor_parallel", tensor_parallel_part, seed, n)
@@ -2022,8 +2194,9 @@ def parallel_phase(seed: int, clips: torch.Tensor) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["parallel"],
-                    help="run the device and build phases and this phase alone")
+    ap.add_argument("--only", choices=["parallel", "sequence"],
+                    help="run the device and build phases and this phase (or this "
+                         "part of the parallel phase) alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -2053,7 +2226,11 @@ def main(argv=None) -> int:
     if args.only == "parallel":
         par = parallel_phase(args.seed, clips)
         print(json.dumps({"parallel": par}), flush=True)
-        ph.done("parallel")
+    if args.only == "sequence":
+        seq = sequence_part(args.seed, torch.cuda.device_count())
+        print(json.dumps({"parallel_part": "sequence", "sequence": seq}), flush=True)
+    if args.only:
+        ph.done(args.only)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2193,7 +2370,8 @@ def main(argv=None) -> int:
                                "channel_defaults": channel["default_launches"]["envelope"],
                                "generate_dataset": generated_launches["envelope"],
                                "train_cls_pt": cls_pt_launches["envelope"],
-                               "parallel": par["ddp"]["envelope_launches"]}
+                               "parallel": par["ddp"]["envelope_launches"],
+                               "sequence": par["sequence"]["envelope_launches"]}
     row["launches_per_train_default_step"] = default["envelope_launches_per_step"]
     row["launches"] = sum(row["launches_by_path"].values())
     prow["launches_by_path"] = {"before_channel": earlier_phaser,
@@ -2201,7 +2379,8 @@ def main(argv=None) -> int:
                                 "channel_defaults": channel["default_launches"]["phaser"],
                                 "generate_dataset": generated_launches["phaser"],
                                 "train_cls_pt": cls_pt_launches["phaser"],
-                                "parallel": par["ddp"]["phaser_launches"]}
+                                "parallel": par["ddp"]["phaser_launches"],
+                                "sequence": par["sequence"]["phaser_launches"]}
     prow["launches"] = channel["launches"]["phaser"]  # the channel's path
     print(json.dumps({"kernels": [row, prow]}), flush=True)
     print(json.dumps({"ok": True, "device": {

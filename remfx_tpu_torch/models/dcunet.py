@@ -380,3 +380,24 @@ class DCUNet(nn.Module):
 
     def output_length(self, length: int) -> int:
         return length
+
+    def time_reach(self) -> tuple[int, int]:
+        """Input samples on each side of an output sample that it can depend
+        on (``parallel/sequence.py``). In frames: each encoder layer's
+        ``ceil((k_t - 1) / 2)`` times the product of the time strides before
+        it, and as much again for the decoder (or the output layer) that
+        inverts it; 102 for Large-DCUNet-20, 10 for Mini-DCUNet-6. An output
+        sample lies in two frames, whose masks reach that far on each side,
+        hence two frames more, at the hop ``K / 2``."""
+        frames, stride = 0, 1
+        for _, _, (_, k_t), (_, s_t) in self.stages:
+            frames += 2 * (k_t // 2) * stride
+            stride *= s_t
+        halo = (frames + 2) * (self.stft_kernel_size // 2)
+        return halo, halo
+
+    def time_alignment(self) -> int:
+        """Samples between the frames at which the U-Net's time strides are
+        in phase, ``(K / 2) * time_prod``: a window that starts on this grid
+        has its frames and stride phases on the whole file's."""
+        return self.stft_kernel_size // 2 * self.time_prod

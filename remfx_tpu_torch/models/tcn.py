@@ -94,3 +94,13 @@ class TCN(nn.Module):
     def output_length(self, length: int) -> int:
         """Samples out for ``length`` in (valid convolutions)."""
         return length - self.compute_receptive_field() + 1
+
+    def time_reach(self) -> tuple[int, int]:
+        """Input samples before and after its own that an output sample
+        reads: output ``j`` reads input ``[j, j + rf - 1]``, with the centre
+        and the causal crop alike (``parallel/sequence.py``)."""
+        return 0, self.compute_receptive_field() - 1
+
+    def time_alignment(self) -> int:
+        """The stride of the grid a window must start on: every sample."""
+        return 1

@@ -17,20 +17,23 @@ explicit collectives:
     change of the values;
   * ``split_batch``: the context in which a split batch's train-mode
     statistics (``models/batchnorm.py``, the DCUNet's complex norm) and
-    per-row draws (Cnn14's SpecAugment) are those of the global batch.
-
-``shard_time`` (one long file split in time) is not ported (ROADMAP.md).
+    per-row draws (Cnn14's SpecAugment) are those of the global batch;
+  * ``shard_time`` / ``gather_time``: one long file split in time over a
+    mesh axis (a ``TimeShard`` per rank) and put back together; the
+    models run on it through ``parallel/sequence.py``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import warnings
 from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 _SPLIT: contextvars.ContextVar = contextvars.ContextVar("remfx_split_batch", default=None)
@@ -107,6 +110,78 @@ def shard_batch(batch, mesh):
         raise ValueError(f"batch of {n} does not split over dp={mesh.size(0)}")
     rows = batch_rows(n, mesh)
     return tuple(rows.take(t) for t in batch)
+
+
+@dataclass(frozen=True)
+class TimeShard:
+    """This rank's span ``[start, stop)`` of the last axis of a signal of
+    ``length`` samples split in time over the mesh axis ``axis``: ``data``
+    is ``x[..., start:stop]``. The spans lie on a grid of ``step`` samples
+    (``ceil(T / ranks)`` of the file ``shard_time`` split): the ``rank``-th
+    of the ``ranks`` ranks of ``group`` holds ``[rank * step, (rank + 1) *
+    step)`` clipped to ``[0, length)``. A signal that a model shortened
+    keeps the grid, so its last ranks may hold empty spans."""
+
+    data: torch.Tensor
+    start: int
+    stop: int
+    length: int
+    step: int
+    rank: int
+    ranks: int
+    axis: str | None = None
+    group: object = None
+
+    def span(self, i: int) -> tuple[int, int]:
+        """Rank ``i``'s span on the grid."""
+        return min(i * self.step, self.length), min((i + 1) * self.step, self.length)
+
+    def on_grid(self, data: torch.Tensor, length: int) -> "TimeShard":
+        """This rank's span of a signal of ``length`` samples on the same
+        grid, holding ``data``."""
+        start, stop = min(self.rank * self.step, length), min((self.rank + 1) * self.step, length)
+        if data.shape[-1] != stop - start:
+            raise ValueError(f"{data.shape[-1]} samples for the span [{start}, {stop})")
+        return dataclasses.replace(self, data=data, start=start, stop=stop, length=length)
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def shard_time(x, mesh, axis: str = "dp") -> TimeShard:
+    """This rank's span of the last (time) axis of ``x`` (a tensor, a numpy
+    array or nested lists, of shape ``(..., T)``, the whole of it on every
+    rank), split over the mesh axis ``axis``: ``ceil(T / n)`` samples each
+    over its ``n`` ranks, the last span shorter; the ranks that share the
+    other mesh coordinate hold the same span. The data is put on this
+    rank's device. Every rank must pass the same ``T``."""
+    x = torch.as_tensor(x, device=_mesh_device(mesh))
+    T = x.shape[-1]
+    group = mesh.get_group(axis)
+    n, r = dist.get_world_size(group), mesh.get_local_rank(axis)
+    # every rank splits the same length (and the group's first collective
+    # is one that every rank joins)
+    seen = torch.tensor([T, -T], device=x.device)
+    dist.all_reduce(seen, op=dist.ReduceOp.MAX, group=group)
+    longest, shortest = seen[0].item(), -seen[1].item()
+    if longest != shortest:
+        raise ValueError(f"shard_time: the ranks hold {shortest} to {longest} samples")
+    step = -(-T // n)
+    start, stop = min(r * step, T), min((r + 1) * step, T)
+    return TimeShard(x[..., start:stop], start, stop, T, step, r, n, axis, group)
+
+
+def gather_time(shard: TimeShard) -> torch.Tensor:
+    """The whole ``(..., length)`` signal on every rank: each span padded
+    to ``step`` samples, one ``all_gather_into_tensor``, then trimmed."""
+    piece = F.pad(shard.data, (0, shard.step - shard.data.shape[-1])).contiguous()
+    out = piece.new_empty(shard.ranks * piece.numel())  # the spans one after another
+    dist.all_gather_into_tensor(out, piece.view(-1), group=shard.group)
+    whole = out.view(shard.ranks, *piece.shape).movedim(0, -2)
+    return whole.reshape(*piece.shape[:-1], shard.ranks * shard.step)[..., :shard.length]
 
 
 @torch.no_grad()

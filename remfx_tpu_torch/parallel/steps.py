@@ -1,6 +1,7 @@
-"""Train steps and batch statistics on a mesh: the functions that
-``parallel.launch.spawn`` runs in each rank to hold N ranks against one
-process (``tests/test_torch_parallel*.py`` and ``chip_smoke.py``).
+"""Train steps, batch statistics and time-sharded inference on a mesh: the
+functions that ``parallel.launch.spawn`` runs in each rank to hold N ranks
+against one process (``tests/test_torch_parallel*.py``,
+``tests/test_torch_sequence.py`` and ``chip_smoke.py``).
 
 Each takes numpy inputs (the weights as a state dict, the global batch)
 and returns numpy or plain values. Called in a process group, it builds
@@ -13,10 +14,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from remfx_tpu_torch.chain.inference import ChainInference
 from remfx_tpu_torch.models import make_cnn14, make_model
 from remfx_tpu_torch.models.batchnorm import BatchNorm2d
-from remfx_tpu_torch.parallel.mesh import (batch_rows, make_mesh, mesh_shape, shard_batch,
-                                           split_batch)
+from remfx_tpu_torch.parallel.mesh import (batch_rows, gather_time, make_mesh, mesh_shape,
+                                           shard_batch, shard_time, split_batch)
+from remfx_tpu_torch.parallel.sequence import (halo_exchange, run_time_sharded,
+                                               sample_time_sharded)
 from remfx_tpu_torch.train.loop import _mean_over_ranks, _shard_state, build_mesh
 from remfx_tpu_torch.train.tasks import ClassifierTask, RemovalTask
 from remfx_tpu_torch.utils.device import resolve_device
@@ -135,4 +139,85 @@ def mesh_probe(cfg: dict, sizes=(11, 1, 8)) -> dict:
     for strict in (True, False):
         out[f"strict={strict}"] = {n: [r.start, r.stop, r.total, r.split] for n in sizes
                                    for r in [batch_rows(n, mesh, strict)]}
+    return out
+
+
+def _removal_model(spec, device):
+    """``(model name, network, state dict or None)`` -> its wrapper, with
+    the state dict's weights or torch's seeded initialisation."""
+    name, network, state_dict = spec
+    wrapper = make_model(name, device=device, **network)
+    if state_dict is not None:
+        _load(wrapper.module, state_dict, device)
+    return wrapper
+
+
+def time_sharded_samples(models: list, x, cases, device_type: str = "cpu") -> list:
+    """The removal ``models`` (``(name, network, state dict or None)``,
+    built in order after ``torch.manual_seed(0)``) on time-sharded inputs:
+    for each ``(model index, T)`` of ``cases``, the first ``T`` samples of
+    ``x`` split over every rank, ``gather_time(sample_time_sharded(...))``
+    and, in this rank too, ``sample`` of the whole input. -> per case
+    {"sharded", "whole", "span": [start, stop) of this rank's output}."""
+    device = _device(device_type)
+    torch.manual_seed(0)
+    wrappers = [_removal_model(spec, device) for spec in models]
+    mesh = make_mesh()
+    out = []
+    for k, T in cases:
+        xt = torch.as_tensor(x[..., :T], device=device)
+        y = sample_time_sharded(wrappers[k], shard_time(xt, mesh))
+        out.append({"sharded": gather_time(y).cpu().numpy(),
+                    "whole": wrappers[k].sample(xt).cpu().numpy(),
+                    "span": [y.start, y.stop]})
+    return out
+
+
+def time_sharded_chain(slots: dict, cases: list, classifier: dict | None = None,
+                       device_type: str = "cpu") -> list:
+    """``run_time_sharded`` of a ``ChainInference`` over the removal
+    ``slots`` ({effect class name: (name, network, state dict or None)},
+    built in order after ``torch.manual_seed(0)``, then the Cnn14 of
+    ``classifier``'s network, if any) for each ``(x, labels)`` of
+    ``cases``: labels an array (oracle), ``"detect"`` (the classifier) or
+    ``"all"`` (``use_all_effect_models``). -> per case {"sharded": the
+    gathered output, "labels", "whole" and "whole_labels": ``run`` of the
+    whole input in this rank, "span"}."""
+    device = _device(device_type)
+    torch.manual_seed(0)
+    models = {k: _removal_model(spec, device) for k, spec in slots.items()}
+    cls = None if classifier is None else make_cnn14(device=device, **classifier)
+    mesh = make_mesh()
+    out = []
+    for x, labels in cases:
+        mode = labels if isinstance(labels, str) else "oracle"
+        chain = ChainInference(models, 48000, classifier=cls if mode == "detect" else None,
+                               use_all_effect_models=mode == "all")
+        given = None if mode != "oracle" else torch.as_tensor(labels, device=device)
+        xt = torch.as_tensor(x, device=device)
+        y, got = run_time_sharded(chain, shard_time(xt, mesh), given)
+        whole, whole_labels = chain.run(xt, given)
+        out.append({"sharded": gather_time(y).cpu().numpy(), "labels": got.cpu().numpy(),
+                    "whole": whole.cpu().numpy(), "whole_labels": whole_labels.cpu().numpy(),
+                    "span": [y.start, y.stop]})
+    return out
+
+
+def time_shard_contract() -> dict:
+    """``shard_time`` of nested lists (``range(16)``) over a ``(dp, tp 2)``
+    mesh: its shape, this rank's span and the gathered whole; then, over a
+    mesh of every rank on ``dp``, the ``ValueError`` of a halo one sample
+    longer than a span, from the left and from the right."""
+    mesh = make_mesh(tp=2)
+    shard = shard_time([[list(range(16))]], mesh)
+    whole = gather_time(shard)
+    out = {"dp_rank": mesh.get_local_rank("dp"), "tp_rank": mesh.get_local_rank("tp"),
+           "span": [shard.start, shard.stop], "data": shard.data.tolist(),
+           "whole": whole.tolist(), "shape": list(whole.shape), "errors": []}
+    shard = shard_time(torch.arange(16.0)[None], make_mesh())
+    for left, right in ((shard.step + 1, 0), (0, shard.step + 1)):
+        try:
+            halo_exchange(shard, left, right)
+        except ValueError as e:
+            out["errors"].append(str(e))
     return out
