@@ -28,9 +28,28 @@ sub-batch and a dense stage; all three bit for bit with every label on),
 test_step (the chain's loss and metrics against the dry clips), and
 cpu_vs_card (clip 0 on the CPU with the same weights: the classifier and
 HDemucs at full width, the five-slot chain and test_step on its first
-65536 samples), train and train_cls, trained, torch_import, umx, dptnet
-and train_default (below). Then the kernel summary line, and the result
-line last.
+65536 samples), bf16, train and train_cls, trained, torch_import, umx,
+dptnet and train_default (below). Then the kernel summary line, and the
+result line last.
+
+bf16 (``--only bf16`` runs the device and build phases and this one
+alone): bench.py's chain (HDemucs in the distortion and compressor slots,
+Large-DCUNet-20 in the other three, Cnn14; each at its trained
+checkpoint's settings, seeded weights) on 32 x 262144 (the demo clips,
+each four times), regroup, oracle labels drawn at p = 0.5, once with
+every parameter, buffer and the input cast to bf16 and once in fp32 (TF32
+off) from the same weights: the oracle row (detect timed beside the
+removal) and the detect-driven row (labels that depend on the
+classifier's output and equal the oracle's), each as audio seconds per
+second with its peak memory (one warm-up, 3 timed passes), and a trace
+of one oracle pass in each dtype (device busy share, top kernels); each
+backbone's sample at 16 x 262144 in both dtypes. Checks: the output bf16
+and finite, the detect-driven output equal to the oracle's bit for bit,
+the bf16 chain within 0.2 x RMS of the fp32 chain (the bound
+tests/test_torch_dtype.py holds a small width to) and above it with the
+reverb's or the compressor's stage skipped, Cnn14's bf16 embedding within
+0.06 x RMS of its fp32 embedding, the labels equal where fp32 Cnn14's
+probabilities lie more than 0.05 from the threshold.
 
 The kernels phase holds the envelope's split kernel (the main path's)
 bit for bit to the serial kernel, on the demo batch and on an adversarial
@@ -56,9 +75,11 @@ scripts/train.py), through fit / test of remfx_tpu_torch.train:
   (render_ms, step_ms, the envelope's launches a step, peak memory, a
   torch.profiler count of the envelope's device kernels in one render +
   step, and a trace of one step's device time by kernel), 4 steps on one
-  fixed batch whose loss must fall, and one
+  fixed batch whose loss must fall, one
   train_step at 65536 samples on the card and on the host CPU from the
-  same weights.
+  same weights, and on that fixed batch a bf16-mixed step beside an fp32
+  step from the seed's weights (the first losses within 2^-8 relative,
+  then 3 more steps of each timed, with their peaks).
 - train_cls: 5-5_full_cls_dynamic (Cnn14 with SpecAugment, 32 x 262144,
   mixup off), two steps through fit; finite metrics and the envelope's
   launches.
@@ -163,7 +184,7 @@ alone, e.g. on four cards):
   there are two cards or more, a dp x tp (FSDP2) step of that TCN at 8 x
   131072 against one process.
 
-Usage: python3 chip_smoke.py [--seed N] [--only parallel|sequence]
+Usage: python3 chip_smoke.py [--seed N] [--only bf16|parallel|sequence]
 (``--only sequence``: the sequence part of the parallel phase alone.)
 Needs one CUDA device: with none it exits non-zero and prints no result.
 """
@@ -596,15 +617,19 @@ def build_slots(dev):
                      **CNN14)
     tcn = make_tcn(sample_rate=SR, device=dev, **TCN)
     check(tcn.output_length(T) == T_OUT, f"TCN output length {T_OUT}")
-    # residual wrapper with torch-default (nonzero) init: identity_init's
-    # zeroed final convs would make the stage a no-op
-    demucs = ModelWrapper(make_demucs(sample_rate=SR, device=dev, **DEMUCS).module,
-                          name="demucs", residual=True)
-    slots = {"RandomPedalboardDistortion": tcn, SLOT: demucs}
+    slots = {"RandomPedalboardDistortion": tcn, SLOT: demucs_slot(dev)}
     for name in ("RandomPedalboardReverb", "RandomPedalboardChorus",
                  "RandomPedalboardDelay"):
         slots[name] = make_dcunet(sample_rate=SR, device=dev, **DCUNET)
     return cls, slots
+
+
+def demucs_slot(dev) -> ModelWrapper:
+    """HDemucs at the compressor checkpoint's width in a residual wrapper,
+    with torch-default (nonzero) init: identity_init's zeroed final convs
+    would make the stage a no-op."""
+    return ModelWrapper(make_demucs(sample_rate=SR, device=dev, **DEMUCS).module,
+                        name="demucs", residual=True)
 
 
 def per_effect(labels: torch.Tensor) -> dict:
@@ -719,6 +744,172 @@ def cpu_vs_card(cls, slots: dict, wet, dry) -> dict:
             "test_step_rel_err": metric_errs}
 
 
+# ---------------------------------------------------------------- bf16
+
+# bench.py's chain (bench.py:79-115; the reference's cfg/exp/remfx_detect.
+# yaml): HDemucs removes distortion and compression, Large-DCUNet-20
+# reverb, chorus and delay, Cnn14 detects. Each slot at its trained
+# checkpoint's settings (DEMUCS in the residual wrapper, DCUNET with
+# identity_init), so every stage keeps the signal's scale: at torch's
+# default init without them a Large-DCUNet-20 scales its input down by
+# about 1e-4, and the error of a vanishing signal says nothing
+BENCH_KINDS = {"RandomPedalboardDistortion": "demucs", SLOT: "demucs",
+               "RandomPedalboardReverb": "dcunet", "RandomPedalboardChorus": "dcunet",
+               "RandomPedalboardDelay": "dcunet"}
+BF16_B = 32  # bench.py's batch: the 8 demo clips, each four times
+BF16_SAMPLE_B = 16  # scripts/bench_stages.py's batch
+BF16_P = 0.5  # each oracle label on with this probability (bench.py's regroup row)
+BF16_ROUNDS = 3  # timed passes a row, after one warm-up
+# max |bf16 - fp32| / RMS(fp32) of the chain's output at the same weights
+# and labels; tests/test_torch_dtype.py holds this composition at a small
+# width to it. A faulty bf16 chain must read above it: the same pass with
+# one of these stages skipped (a Large-DCUNet-20, an HDemucs)
+BF16_CHAIN_TOL = 0.2
+BF16_SKIPPED = ("reverb", "compressor")
+# max |bf16 - fp32| / RMS(fp32) of Cnn14's 2048-d embedding, as
+# tests/test_torch_dtype.py holds the port's to the JAX package's
+CNN14_BF16_TOL = 0.06
+BF16_MARGIN = 0.05  # fp32 probabilities this far from the threshold: equal labels
+
+
+def bench_slots(dev):
+    """Cnn14 and bench.py's five slots at full width, with the weights
+    torch draws after ``torch.manual_seed``."""
+    cls = make_cnn14(num_classes=len(ALL_EFFECTS), sample_rate=SR, device=dev, **CNN14)
+    slots = {name: demucs_slot(dev) if kind == "demucs"
+             else make_dcunet(sample_rate=SR, device=dev, **DCUNET)
+             for name, kind in BENCH_KINDS.items()}
+    return cls, slots
+
+
+def timed_rounds(fn) -> tuple:
+    """(the last result, wall ms of each of BF16_ROUNDS calls after one
+    warm-up, the peak GiB allocated over them), the card synchronised
+    around each call."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(BF16_ROUNDS):
+        out, ms = timed_ms(fn)
+        times.append(ms)
+    return out, times, torch.cuda.max_memory_allocated() / 2**30
+
+
+def bf16_phase(seed: int, clips: torch.Tensor) -> dict:
+    """bench.py's chain at 32 x 262144, regroup, in bf16 (every parameter,
+    buffer and the input cast) and in fp32 from the same weights: the
+    oracle row (detect timed beside the removal of fixed labels) and the
+    detect-driven row (labels that depend on the classifier's output and
+    equal the oracle's), as audio seconds per second; each backbone's
+    ``sample`` at 16 x 262144 in both; a trace of one oracle pass in each
+    dtype; bf16 against fp32: the chain's output (and, as a control, with
+    a stage skipped), Cnn14's embedding and its labels."""
+    dev = clips.device
+    torch.manual_seed(seed)
+    cls, slots = bench_slots(dev)
+    nets = {"fp32": (cls, slots),
+            "bf16": (copy.deepcopy(cls).to(torch.bfloat16),
+                     {k: copy.deepcopy(w).to(torch.bfloat16) for k, w in slots.items()})}
+    x = clips.repeat(BF16_B // B, 1)[:, None, :]
+    gen = torch.Generator().manual_seed(seed)
+    oracle = (torch.rand(BF16_B, len(ALL_EFFECTS), generator=gen) < BF16_P).float().to(dev)
+    audio_s = BF16_B * T / SR
+    rows, out, probs, embed = {}, {}, {}, {}
+    for dtype, (c, models) in nets.items():
+        xd = x.to(torch.bfloat16) if dtype == "bf16" else x
+        detector = ChainInference({}, SR, classifier=c)
+        remover = ChainInference(models, SR, dispatch="regroup")
+
+        def oracle_row():
+            labels = detector.detect(xd)
+            return remover.run(xd, oracle)[0], labels
+
+        def detect_row():
+            labels = detector.detect(xd)
+            return remover.run(xd, oracle + 0.0 * labels)[0], labels
+
+        for row, fn in (("oracle", oracle_row), ("detect_driven", detect_row)):
+            (y, _), ms, peak = timed_rounds(fn)
+            check(y.dtype == xd.dtype and y.shape == x.shape,
+                  f"{row} {dtype} output {y.dtype} {tuple(y.shape)}")
+            check(bool(torch.isfinite(y).all()), f"{row} {dtype} output finite")
+            rows[f"{row}_{dtype}"] = {"ms": ms, "audio_s_per_s": audio_s / (statistics.median(ms) / 1e3),
+                                      "peak_allocated_gib": peak}
+            out.setdefault(dtype, {})[row] = y
+        rows[f"oracle_{dtype}"]["trace"] = trace_device(oracle_row, top=8)
+        check(torch.equal(out[dtype]["oracle"], out[dtype]["detect_driven"]),
+              f"{dtype}: the detect-driven row removes what the oracle row removes")
+        with torch.no_grad():
+            probs[dtype], embed[dtype] = c(xd), c.embed(xd)
+        check(probs[dtype].dtype == xd.dtype, f"{dtype} probabilities {probs[dtype].dtype}")
+        del detector, remover
+
+    want = out["fp32"]["oracle"]
+    err = max_rel_rms(out["bf16"]["oracle"], want)
+    check(err <= BF16_CHAIN_TOL, f"bf16 chain against fp32 {err} <= {BF16_CHAIN_TOL} x RMS")
+    skipped = {}
+    for effect in BF16_SKIPPED:
+        labels = oracle.clone()
+        labels[:, ALL_EFFECTS.index(effect)] = 0
+        y = ChainInference(nets["bf16"][1], SR, dispatch="regroup").run(
+            x.to(torch.bfloat16), labels)[0]
+        skipped[effect] = max_rel_rms(y, want)
+        check(skipped[effect] > BF16_CHAIN_TOL,
+              f"bf16 chain with the {effect} stage skipped {skipped[effect]} > {BF16_CHAIN_TOL}")
+    embed_err = max_rel_rms(embed["bf16"], embed["fp32"])
+    check(embed_err <= CNN14_BF16_TOL,
+          f"Cnn14 bf16 embedding against fp32 {embed_err} <= {CNN14_BF16_TOL} x RMS")
+    p32, p16 = probs["fp32"].float(), probs["bf16"].float()
+    clear = (p32 - 0.5).abs() > BF16_MARGIN
+    equal = int(((p16 > 0.5) == (p32 > 0.5))[clear].sum())
+    check(equal == int(clear.sum()), f"labels equal where fp32 clears the margin: "
+          f"{equal} of {int(clear.sum())}")
+
+    sample = {}
+    xs = x[:BF16_SAMPLE_B]
+    for kind, (slot, name) in {"demucs": (SLOT, "HDemucs"),
+                               "dcunet": ("RandomPedalboardReverb", "Large-DCUNet-20"),
+                               "cnn14": (None, "Cnn14")}.items():
+        for dtype, (c, models) in nets.items():
+            xd = xs.to(torch.bfloat16) if dtype == "bf16" else xs
+            net = c if slot is None else models[slot].sample
+            with torch.no_grad():
+                y, ms, peak = timed_rounds(lambda: net(xd))
+            check(y.dtype == xd.dtype and bool(torch.isfinite(y).all()),
+                  f"{name} {dtype} sample finite in {xd.dtype}")
+            sample[f"{kind}_{dtype}"] = {"ms": ms, "ms_median": statistics.median(ms),
+                                         "peak_allocated_gib": peak}
+    speedups = {r: rows[f"{r}_bf16"]["audio_s_per_s"] / rows[f"{r}_fp32"]["audio_s_per_s"]
+                for r in ("oracle", "detect_driven")}
+    speedups.update({k: sample[f"{k}_fp32"]["ms_median"] / sample[f"{k}_bf16"]["ms_median"]
+                     for k in ("demucs", "dcunet", "cnn14")})
+    return {"batch": BF16_B, "samples": T, "sample_batch": BF16_SAMPLE_B,
+            "oracle_per_effect": per_effect(oracle), "rows": rows, "sample": sample,
+            "speedup_bf16": speedups, "max_abs_err_over_rms": err,
+            "tol": BF16_CHAIN_TOL, "skipped_err_over_rms": skipped,
+            "cnn14_embed_err_over_rms": embed_err, "cnn14_tol": CNN14_BF16_TOL,
+            "labels_compared": int(clear.sum()),
+            "labels_equal": equal, "out_dtype": str(out["bf16"]["oracle"].dtype),
+            "probs_max_abs_diff": (p16 - p32).abs().max().item()}
+
+
+def bf16_run(seed: int, clips: torch.Tensor) -> dict:
+    """The bf16 phase with the kernels' launches on its path (counts at 0
+    just before, read just after)."""
+    phaser.launches = envelope.launches = 0
+    out = bf16_phase(seed, clips)
+    torch.cuda.synchronize()
+    out["launches"] = {"envelope": envelope.launches, "phaser": phaser.launches}
+    return out
+
+
+def max_rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the RMS of ``want`` (in float64)."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max() / want.pow(2).mean().sqrt()).item()
+
+
 # ---------------------------------------------------------------- training
 
 # the JAX package's `scripts/train.py +exp=compression_aug` on the dynamic
@@ -733,6 +924,9 @@ TIMED_STEPS = 3  # render + train_step, each timed, on fresh batches
 FIT_STEPS = 4  # train_steps on one fixed batch, whose loss must fall
 TRAIN_CPU_T = 65536  # samples of the card-against-CPU train step
 TRAIN_CPU_TOL = 1e-4  # loss, relative: fp32, TF32 off on the card
+# a bf16-mixed step's loss against the fp32 step's from the same weights,
+# relative: tests/test_torch_train.py's bound, one bf16 ulp
+TRAIN_BF16_TOL = 2.0 ** -8
 CLS_ARGS = ["+exp=5-5_full_cls_dynamic", "datamodule.synthetic=true"]
 CLS_B = 32  # 5-5_full_cls_dynamic's train_batch_size
 CLS_STEPS = 2
@@ -901,6 +1095,8 @@ def train_phase(seed: int, logs: Path, env_names) -> dict:
 
     cpu = cpu_train_step(fit_task, (fixed[0][:1, :, :TRAIN_CPU_T].contiguous(),
                                     fixed[1][:1, :, :TRAIN_CPU_T].contiguous()))
+    del fit_task, fit_state
+    half = bf16_mixed_steps(seed, logs, fixed[:2])
     step_med, render_med = statistics.median(step_ms), statistics.median(render_ms)
     audio_s = TRAIN_B * T / SR
     return {"fit_envelope_launches": fit_launches, "envelope_launches_per_step": per_step,
@@ -915,7 +1111,37 @@ def train_phase(seed: int, logs: Path, env_names) -> dict:
             "train_audio_s_per_s": audio_s / (step_med / 1e3),
             "train_audio_s_per_s_with_render": audio_s / ((step_med + render_med) / 1e3),
             "peak_allocated_gib": peak, "step_trace": step_trace,
-            "fixed_batch_losses": losses, "cpu_vs_card": cpu}
+            "fixed_batch_losses": losses, "cpu_vs_card": cpu, "bf16_mixed": half}
+
+
+def bf16_mixed_steps(seed: int, logs: Path, batch) -> dict:
+    """compression_aug's step in bf16-mixed beside its fp32 step, each from
+    the seed's weights on one batch: the first step's losses against each
+    other, then both timed over TIMED_STEPS more steps, with their peaks."""
+    out = {}
+    for precision in ("32", "bf16-mixed"):
+        task = build_task(train_cfg(TRAIN_ARGS, seed, logs, "render_files=false",
+                                    f"trainer.precision={precision}"))
+        check(task.precision == precision, f"the task trains in {precision}")
+        state = task.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for _ in range(1 + TIMED_STEPS):
+            (_, m), ms = timed_ms(lambda: task.train_step(state, batch))
+            losses.append(m["train_loss"].item())
+            step_ms.append(ms)
+        out[precision] = {"losses": losses, "step_ms": step_ms[1:],
+                          "step_ms_median": statistics.median(step_ms[1:]),
+                          "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+        finite_metrics({"loss": losses[-1]}, f"{precision} step")
+        del task, state
+    first = {p: v["losses"][0] for p, v in out.items()}
+    rel = abs(first["bf16-mixed"] - first["32"]) / abs(first["32"])
+    check(rel <= TRAIN_BF16_TOL,
+          f"bf16-mixed step's loss against fp32's {rel} <= {TRAIN_BF16_TOL}")
+    return {"fp32": out["32"], "bf16": out["bf16-mixed"], "first_loss_rel_err": rel,
+            "speedup": out["32"]["step_ms_median"] / out["bf16-mixed"]["step_ms_median"]}
 
 
 def train_cls_phase(seed: int, logs: Path, env_names) -> dict:
@@ -2194,7 +2420,7 @@ def parallel_phase(seed: int, clips: torch.Tensor) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["parallel", "sequence"],
+    ap.add_argument("--only", choices=["bf16", "parallel", "sequence"],
                     help="run the device and build phases and this phase (or this "
                          "part of the parallel phase) alone")
     args = ap.parse_args(argv)
@@ -2229,8 +2455,11 @@ def main(argv=None) -> int:
     if args.only == "sequence":
         seq = sequence_part(args.seed, torch.cuda.device_count())
         print(json.dumps({"parallel_part": "sequence", "sequence": seq}), flush=True)
-    if args.only:
+    if args.only == "bf16":
+        ph.done("bf16", **bf16_run(args.seed, clips))
+    elif args.only:
         ph.done(args.only)
+    if args.only:
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2306,6 +2535,9 @@ def main(argv=None) -> int:
     ph.done("cpu_vs_card", **cpu_vs_card(cls, slots, wet, dry))
     del cls, slots, chain, chain_all, chain_oracle
     torch.cuda.empty_cache()
+    bf16 = bf16_run(args.seed, clips)
+    ph.done("bf16", **bf16)
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         train = train_phase(args.seed, Path(tmp) / "train", row["device_kernels"])
@@ -2371,7 +2603,8 @@ def main(argv=None) -> int:
                                "generate_dataset": generated_launches["envelope"],
                                "train_cls_pt": cls_pt_launches["envelope"],
                                "parallel": par["ddp"]["envelope_launches"],
-                               "sequence": par["sequence"]["envelope_launches"]}
+                               "sequence": par["sequence"]["envelope_launches"],
+                               "bf16": bf16["launches"]["envelope"]}
     row["launches_per_train_default_step"] = default["envelope_launches_per_step"]
     row["launches"] = sum(row["launches_by_path"].values())
     prow["launches_by_path"] = {"before_channel": earlier_phaser,
@@ -2380,7 +2613,8 @@ def main(argv=None) -> int:
                                 "generate_dataset": generated_launches["phaser"],
                                 "train_cls_pt": cls_pt_launches["phaser"],
                                 "parallel": par["ddp"]["phaser_launches"],
-                                "sequence": par["sequence"]["phaser_launches"]}
+                                "sequence": par["sequence"]["phaser_launches"],
+                                "bf16": bf16["launches"]["phaser"]}
     prow["launches"] = channel["launches"]["phaser"]  # the channel's path
     print(json.dumps({"kernels": [row, prow]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,14 +13,44 @@ Under data parallelism a rank holds part of the batch. Inside
 global batch's (the ranks' sums all-reduced over ``dp``, differentiably),
 as the JAX package's are under GSPMD, so the output, the gradients and
 the running statistics are one device's on the whole batch.
+
+bf16-mixed training computes with bf16 copies of the parameters and
+keeps the running statistics in fp32, which torch's batch norm takes
+only with fp32 parameters: ``mixed_batch_norm`` gives it the weight and
+bias in the statistics' dtype (torch's mixed-type kernel: bf16 in and
+out, the statistics read and updated in fp32; where the dtypes agree the
+cast does nothing and this is torch's forward). ``BatchNorm1d`` (UMX's,
+whose running variance takes the unbiased batch variance as torch's
+does) and ``BatchNorm2d``'s eval mode run through it.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from remfx_tpu_torch.parallel.mesh import batch_means, current_split
+
+
+def mixed_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """torch's forward of ``bn`` (affine, tracked statistics, a set
+    ``momentum``) with the weight and bias cast to the running statistics'
+    dtype (a differentiable cast, so the gradients reach the parameters as
+    they came)."""
+    dtype = bn.running_mean.dtype
+    if bn.training:
+        bn.num_batches_tracked.add_(1)
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight.to(dtype),
+                        bn.bias.to(dtype), bn.training, bn.momentum, bn.eps)
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """torch's ``BatchNorm1d``, taking bf16 activations beside fp32 running
+    statistics (``mixed_batch_norm``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mixed_batch_norm(self, x)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -28,7 +58,7 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            return mixed_batch_norm(self, x)
         xf = x.float()
         axes = (0, 2, 3)
         rows = current_split()

@@ -15,9 +15,11 @@ pytorch's ``OpenUnmix`` and ``Separator``):
   (``ops/wiener.py``) per example, keeping source 0 -> iSTFT at the input
   length.
 
-The BatchNorms are ``nn.BatchNorm1d``: the JAX module keeps torch's rule
-(the running variance updated with the unbiased batch variance), unlike
-flax's ``BatchNorm`` that ``models/batchnorm.py`` copies for Cnn14.
+The BatchNorms are torch's ``BatchNorm1d`` (``models/batchnorm.py``'s,
+which also takes bf16 activations beside fp32 running statistics): the
+JAX module keeps torch's rule (the running variance updated with the
+unbiased batch variance), unlike flax's ``BatchNorm`` that
+``models/batchnorm.py`` copies for Cnn14.
 ``identity_init`` sets ``output_scale`` to 0.1 and ``output_mean`` to 1,
 so that the mask starts near 1. Parameter names are the JAX package's and
 torch's (``fc1.weight`` (out, in), ``bn1.*``, ``lstm.weight_ih_l{n}``...),
@@ -29,6 +31,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from remfx_tpu_torch.models.batchnorm import BatchNorm1d
 from remfx_tpu_torch.models.lstm import LSTM
 from remfx_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 from remfx_tpu_torch.ops.wiener import wiener
@@ -45,13 +48,13 @@ class OpenUnmix(nn.Module):
         self.input_mean = nn.Parameter(torch.zeros(self.crop_bins))
         self.input_scale = nn.Parameter(torch.ones(self.crop_bins))
         self.fc1 = nn.Linear(nb_channels * self.crop_bins, hidden_size, bias=False)
-        self.bn1 = nn.BatchNorm1d(hidden_size)
+        self.bn1 = BatchNorm1d(hidden_size)
         self.lstm = LSTM(hidden_size, hidden_size // 2, num_layers=nb_layers,
                          bidirectional=True, dropout=0.4)
         self.fc2 = nn.Linear(2 * hidden_size, hidden_size, bias=False)
-        self.bn2 = nn.BatchNorm1d(hidden_size)
+        self.bn2 = BatchNorm1d(hidden_size)
         self.fc3 = nn.Linear(hidden_size, nb_bins * nb_channels, bias=False)
-        self.bn3 = nn.BatchNorm1d(nb_bins * nb_channels)
+        self.bn3 = BatchNorm1d(nb_bins * nb_channels)
         self.output_scale = nn.Parameter(
             torch.full((nb_bins,), 0.1 if identity_init else 1.0))
         self.output_mean = nn.Parameter(
@@ -102,7 +105,12 @@ class UMXSeparator(nn.Module):
             denom = torch.clamp(mag, min=1e-8)
             yr, yi = est * re / denom, est * im / denom
         else:
-            x = torch.complex(re, im)
+            # torch has no bf16 complex type: a bf16 pair runs the EM in
+            # complex64 and is rounded back to bf16 after it (the JAX
+            # package runs its EM on the bf16 pairs themselves)
+            real = torch.promote_types(re.dtype, torch.float32)
+            x = torch.complex(re.to(real), im.to(real))
+            est = est.to(real)
             ys = []
             # per example, as the JAX package's vmap: the EM's rescale and
             # statistics are the example's own; (frames, F, C, S) in
@@ -114,7 +122,7 @@ class UMXSeparator(nn.Module):
                     wiener_win_len=self.wiener_win_len)
                 ys.append(y[..., 0].permute(2, 1, 0))  # source 0, (C, F, frames)
             y = torch.stack(ys)
-            yr, yi = y.real, y.imag
+            yr, yi = y.real.to(re.dtype), y.imag.to(re.dtype)
         return istft_ri(yr, yi, self.n_fft, self.hop_length, window, length=T)
 
     def output_length(self, length: int) -> int:

@@ -64,5 +64,8 @@ class MelSpectrogram(nn.Module):
                              persistent=False)  # (n_mels, n_freqs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The power and the filterbank product in ``x``'s dtype: an fp32
+        filterbank would promote the classifier after it (the JAX
+        package casts ``fb`` to ``x.dtype``, ``remfx_tpu/ops/mel.py:72-81``)."""
         re, im = stft_ri(x, self.n_fft, self.hop_length, self.window)
-        return torch.matmul(self.fb_t, re * re + im * im)  # power 2
+        return torch.matmul(self.fb_t.to(x.dtype), re * re + im * im)  # power 2
