@@ -133,11 +133,17 @@ Then the last two removal backbones and the reference's torch files:
 
 Then the mixing channel and the evaluation surface:
 
-- the kernels line also holds the phaser's hand-written kernel
+- the kernels line also holds the phaser's hand-written kernels
   (csrc/phaser.cu; the JAX package renders it with a lax.scan, no TPU
-  kernel) bit for bit to phaser_plain, run on the host from the same
-  coefficient, at 8 x 2 x 16384 and 8 x 2 x 262144, and times it at
-  8 x 1 and 8 x 2 x 262144.
+  kernel) against phaser_plain, run on the host from the same
+  coefficient: the serial kernel bit for bit at 8 x 2 x 16384 and 8 x 2 x
+  262144, the split kernel (the default, three passes over chunks of
+  time) within SPLIT_TOL of each row's peak at 8 x 2 x 262144 on the demo
+  clips and on hard rows (the slowest poles, digital silence after a
+  burst). Both are timed at 8 x 1 and 8 x 2 x 262144 by events over
+  back-to-back calls (the line's "ms"), the split kernel also by replays
+  of a CUDA graph ("graph_ms": the card's time without the host's three
+  launches a call), with each pass's device time.
 - channel: RandomAudioEffectsChannel on the demo clips as stereo, 8 x 2 x
   262144, with every stage forced on (the phaser's path: one phaser and
   three envelope launches), then at its default probabilities; every row
@@ -184,8 +190,9 @@ alone, e.g. on four cards):
   there are two cards or more, a dp x tp (FSDP2) step of that TCN at 8 x
   131072 against one process.
 
-Usage: python3 chip_smoke.py [--seed N] [--only bf16|parallel|sequence]
-(``--only sequence``: the sequence part of the parallel phase alone.)
+Usage: python3 chip_smoke.py [--seed N] [--only kernels|bf16|parallel|sequence]
+(``--only sequence``: the sequence part of the parallel phase alone;
+``--only kernels``: the kernels line alone.)
 Needs one CUDA device: with none it exits non-zero and prints no result.
 """
 
@@ -235,7 +242,8 @@ from remfx_tpu_torch.ops import _build
 from remfx_tpu_torch.ops.envelope import (envelope, envelope_flags,
                                           envelope_plain, envelope_serial)
 from remfx_tpu_torch.ops.loudness import integrated_loudness, loudness_normalize
-from remfx_tpu_torch.ops.phaser import phaser, phaser_plain
+from remfx_tpu_torch.ops.phaser import CHUNK as PHASER_CHUNK
+from remfx_tpu_torch.ops.phaser import SPLIT_TOL, phaser, phaser_plain, phaser_serial
 from remfx_tpu_torch.parallel.sequence import GatherPlan, sample_windows, time_plan
 from remfx_tpu_torch.train.checkpoint import (find_latest_run, load_trained_wrapper,
                                               read_state, restore_from, restore_tree)
@@ -337,6 +345,21 @@ def time_kernel(fn, warmup: int = 3, rounds: int = 5, calls: int = 10) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, rounds: int = 5, replays: int = 10) -> float:
+    """Median ms of one call of ``fn`` replayed from a CUDA graph: the
+    card's time for the call without the host's launch overhead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_kernel(graph.replay, rounds=rounds, calls=replays)
+
+
 def load_kernel_modules(dev):
     """One launch of each hand kernel on a tiny input, before any profiler
     trace starts. CUDA loads a kernel at its first launch, and a trace has
@@ -347,6 +370,7 @@ def load_kernel_modules(dev):
     c = torch.full((1,), 0.5, device=dev)
     envelope(x, c, c)
     phaser(x[:, None, :].contiguous(), x, c, c)
+    phaser_serial(x[:, None, :].contiguous(), x, c, c)
     torch.cuda.synchronize()
 
 
@@ -1599,11 +1623,12 @@ def torch_import_phase(chain, cfg: dict, tmp: Path) -> dict:
 
 # ------------------------------- the mixing channel, the phaser kernel, evaluation
 
-PHASER_CPU_T = 16384  # the phaser's bit-for-bit check, 8 x 2 x 16384
+PHASER_CPU_T = 16384  # the serial phaser's bit-for-bit check, 8 x 2 x 16384
+PHASER_DWELL = {"rate_hz": 0.25, "depth": 0.6, "feedback": 0.6, "mix": 0.7}
 CHANNEL_CPU_T = 65536  # samples of the channel's card-against-CPU row
 CHANNEL_CPU_TOL = 1e-4  # x peak, as the synthesis path's
 LUFS_CHANNEL_TOL = 0.1  # LU of the channel's -32 LUFS
-CHAIN_ROUNDINGS = 20  # the phaser's dependent roundings a sample (csrc/phaser.cu)
+SPLIT_CHAIN = 7  # the split phaser's dependent FMAs a sample, and a 7 x 7 matvec's
 FP32_LATENCY_CYCLES = 4  # an fp32 multiply or add on Hopper
 EVAL_N, EVAL_CHUNKS, EVAL_BATCH = "0,1", 16, 8
 CLS_PT_ARGS = ["+exp=5-5_full_cls", "model=cls_panns_pt", "datamodule.synthetic=true",
@@ -1638,70 +1663,129 @@ p = cs.phaser_fx.sample_params(gen, cs.B, cs.phaser_fx.DEFAULT_RANGES, device=de
 a = cs.phaser_fx.coefficients(p, cs.T, cs.SR, dev)
 fb, mix = p["feedback"].contiguous(), p["mix"].contiguous()
 cs.phaser(x2, a, fb, mix)
-names = cs.device_kernels(lambda: (x2.add(0.0), cs.phaser(x2, a, fb, mix), x2.add(0.0)))
-print(json.dumps([k for k in names if "phaser" in k]))
+print(json.dumps(cs.phaser_passes(x2, a, fb, mix)))
 """
 
 
-def phaser_trace_apart(seed: int) -> list:
-    """The phaser's device kernels in one call, traced by a new process."""
+def phaser_trace_apart(seed: int) -> dict:
+    """``phaser_passes`` in a new process."""
     out = subprocess.run([sys.executable, "-c", PHASER_TRACE, str(seed)], cwd=ROOT,
                          capture_output=True, text=True, timeout=300, check=True)
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+def phaser_hard_batch(clips: torch.Tensor):
+    """(8, 2, 262144) of the demo clips on the phaser's slowest poles (rate
+    0.25 Hz, depth 0.6: the coefficient dwells below -0.993, poles above z =
+    0.993, for about 52,000 samples from sample 118,000; feedback 0.6):
+    rows 0-3 as they are, rows 4-5 a 0.1 s burst then digital silence, rows
+    6-7 silent from sample 130,000, just before the dwell."""
+    x = stereo(clips).clone()
+    x[4:6, :, SR // 10:] = 0.0
+    x[6:, :, 130000:] = 0.0
+    p = {k: torch.full((B,), v, device=clips.device) for k, v in PHASER_DWELL.items()}
+    p["centre_frequency_hz"] = torch.full((B,), 200.0, device=clips.device)
+    return x, phaser_fx.coefficients(p, T, SR, clips.device), p["feedback"], p["mix"]
+
+
+def row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error over each row's peak."""
+    peak = want.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    return ((got - want).abs() / peak).max().item()
+
+
+def phaser_passes(x, a, fb, mix, calls: int = 3) -> dict:
+    """The split phaser's device kernels in a trace of the card over
+    ``calls`` calls, between two copies (a trace can miss its first
+    kernels): each kernel's device ms a call, by name."""
+    out = collections.Counter()
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        x.add(0.0)
+        for _ in range(calls):
+            phaser(x, a, fb, mix)
+        x.add(0.0)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "phaser" in e.key:
+            name = next((k for k in ("maps", "scan", "apply") if f"phaser_{k}" in e.key), e.key)
+            out[name] += e.self_device_time_total / 1e3 / e.count
+    return dict(out)
+
+
 def phaser_row(clips: torch.Tensor, gen: torch.Generator, seed: int) -> dict:
-    """The phaser kernel against phaser_plain (on the host, from the same
-    coefficient): bit for bit at 8 x 2 x 16384 and at the channel's shape,
-    8 x 2 x 262144; timed at 8 x 1 and 8 x 2 x 262144."""
+    """The phaser's two kernels against phaser_plain, run on the host from
+    the same coefficient: the serial kernel bit for bit at 8 x 2 x 16384 and
+    at the channel's shape, 8 x 2 x 262144; the split kernel (the default)
+    within SPLIT_TOL of each row's peak there, on the demo clips and on the
+    hard rows. Both timed at 8 x 1 and 8 x 2 x 262144: back-to-back calls
+    by events ("ms", the serial kernel's "serial_ms" alike), the split
+    kernel also by graph replays ("graph_ms")."""
     dev = clips.device
     x2 = stereo(clips)
     p = phaser_fx.sample_params(gen, B, phaser_fx.DEFAULT_RANGES, device=dev)
     a = phaser_fx.coefficients(p, T, SR, dev)
     fb, mix = p["feedback"].contiguous(), p["mix"].contiguous()
+    hard = phaser_hard_batch(clips)
 
     def host(v):
         return v.cpu()
 
     xs = x2[..., :PHASER_CPU_T].contiguous()
     a_s = a[:, :PHASER_CPU_T].contiguous()
-    short = phaser(xs, a_s, fb, mix)
+    short = phaser_serial(xs, a_s, fb, mix)
     check(torch.equal(short.cpu(), phaser_plain(*map(host, (xs, a_s, fb, mix)))),
-          f"phaser kernel equals phaser_plain bit for bit at 8 x 2 x {PHASER_CPU_T}")
-    got = phaser(x2, a, fb, mix)
+          f"serial phaser kernel equals phaser_plain bit for bit at 8 x 2 x {PHASER_CPU_T}")
+    got = {"demo": phaser(x2, a, fb, mix), "hard": phaser(*hard)}
+    serial = {"demo": phaser_serial(x2, a, fb, mix), "hard": phaser_serial(*hard)}
     torch.cuda.synchronize()
+    # one host loop for both batches: the loop's time is per step, not per row
     t0 = time.perf_counter()
-    want = phaser_plain(*map(host, (x2, a, fb, mix)))
+    both = phaser_plain(*(torch.cat([host(u), host(v)]) for u, v in
+                          zip((x2, a, fb, mix), hard)))
     plain_ms = (time.perf_counter() - t0) * 1e3
-    check(bool(torch.isfinite(got).all()), "phaser finite")
-    equal = torch.equal(got.cpu(), want)
-    check(equal, "phaser kernel equals phaser_plain bit for bit at 8 x 2 x 262144")
+    want = {"demo": both[:B], "hard": both[B:]}
+    errs = {}
+    for k in ("demo", "hard"):
+        check(bool(torch.isfinite(got[k]).all()), f"split phaser finite ({k})")
+        check(torch.equal(serial[k].cpu(), want[k]),
+              f"serial phaser kernel equals phaser_plain bit for bit at 8 x 2 x {T} ({k})")
+        errs[k] = row_rel(got[k].cpu(), want[k])
+        check(errs[k] <= SPLIT_TOL, f"split phaser within {SPLIT_TOL} of each row's "
+              f"peak of phaser_plain ({k}): {errs[k]}")
     x1 = clips[:, None, :].contiguous()
-    ms = {"8x1": time_kernel(lambda: phaser(x1, a, fb, mix), rounds=3, calls=3),
-          "8x2": time_kernel(lambda: phaser(x2, a, fb, mix), rounds=3, calls=3)}
-    # a trace of the card can miss its first kernel, so a copy runs first,
-    # and one after. After the envelope's traces and this row's host loop,
-    # the profiler misses this kernel in most traces of this process (whole
-    # runs on the card saw it in their 4th, 11th and 47th), where a new
-    # process that traces it first has seen it every time: three traces
-    # here, host + card and card alone, then up to three in new processes
-    def traced(cuda_only):
-        call = lambda: (x2.add(0.0), phaser(x2, a, fb, mix), x2.add(0.0))  # noqa: E731
-        names = (device_kernel_counts(call).elements() if cuda_only
-                 else device_kernels(call))
-        return [k for k in names if "phaser" in k]
-
-    for traces in range(1, 7):
-        kernels = traced(cuda_only=traces % 2 == 0) if traces <= 3 else phaser_trace_apart(seed)
-        if kernels:
+    # after the host loop the card's clocks take a while to rise, and the
+    # first timings read slow
+    for _ in range(3):
+        time_kernel(lambda: phaser(x2, a, fb, mix))
+    ms = {"8x1": time_kernel(lambda: phaser(x1, a, fb, mix)),
+          "8x2": time_kernel(lambda: phaser(x2, a, fb, mix))}
+    # back-to-back calls from the host can leave the card waiting for the
+    # next launch (three kernels a call, each a few tens of microseconds),
+    # so the card's own time is read from graph replays too
+    replayed = {"8x1": graph_ms(lambda: phaser(x1, a, fb, mix)),
+                "8x2": graph_ms(lambda: phaser(x2, a, fb, mix))}
+    serial_ms = {"8x1": time_kernel(lambda: phaser_serial(x1, a, fb, mix), rounds=3, calls=3),
+                 "8x2": time_kernel(lambda: phaser_serial(x2, a, fb, mix), rounds=3, calls=3)}
+    # where this process's traces miss the phaser's kernels (whole runs on
+    # the card have seen that), a new process traces them
+    for traces in range(1, 5):
+        passes = (phaser_passes(x2, a, fb, mix) if traces <= 3
+                  else phaser_trace_apart(seed))
+        if len(passes) == 3:
             break
-    check(len(kernels) >= 1, "the profiler saw the phaser's device kernel")
+    check(len(passes) == 3, f"the profiler saw the phaser's 3 device kernels: {passes}")
     rows, channels, steps = x2.shape
     n_bytes = (2 * rows * channels * steps + rows * steps + 2 * rows) * 4
     n_ops = 29 * rows * channels * steps  # per sample: 2 + 6 x 4 + 3 roundings
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / FP32_OPS_PER_S * 1e3
     ghz = sm_clock_ghz()
+    groups = -(-steps // (32 * PHASER_CHUNK))
+    # the split design's chain: passes 1 and 3 a chunk each, pass 1's warp
+    # scan (5 rounds), pass 2 a 7 x 7 product a group
+    split_cycles = ((2 * PHASER_CHUNK + 5 + groups) * SPLIT_CHAIN * FP32_LATENCY_CYCLES)
     return {
         "name": "phaser",
         "kind": "hand kernel, not a TPU kernel",
@@ -1709,19 +1793,25 @@ def phaser_row(clips: torch.Tensor, gen: torch.Generator, seed: int) -> dict:
         "source": "remfx_tpu_torch/csrc/phaser.cu",
         "replaces": "remfx_tpu/fx/phaser.py:94",
         "shape": [rows, channels, steps],
-        "device_kernels_per_call": len(kernels),
-        "device_kernels": kernels,
-        "traces": traces,  # 4-6: in a new process
-        "max_abs_err": (got.cpu() - want).abs().max().item(),
-        "plain_equal": equal,
-        "plain_equal_samples": [PHASER_CPU_T, steps],
+        "chunk": PHASER_CHUNK,
+        "device_kernels_per_call": len(passes),
+        "traces": traces,  # 4: in a new process
+        "pass_device_ms": passes,
+        "max_abs_err": (got["demo"].cpu() - want["demo"]).abs().max().item(),
+        "max_rel_err": errs,  # of each row's peak, demo clips and hard rows
+        "tolerance": SPLIT_TOL,
+        "serial_equal": True,
+        "serial_equal_samples": [PHASER_CPU_T, steps],
         "ms": ms["8x2"],
         "kernel_ms": ms,
+        "graph_ms": replayed,
+        "serial_ms": serial_ms,
         "plain_ms": plain_ms,
         "plain_device": "cpu",
+        "plain_rows": 2 * rows,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "latency_bound_ms": steps * CHAIN_ROUNDINGS * FP32_LATENCY_CYCLES / (ghz * 1e9) * 1e3,
+        "latency_bound_ms": split_cycles / (ghz * 1e9) * 1e3,
         "sm_clock_max_ghz": ghz,
         "library_ms": None,
     }
@@ -2420,7 +2510,7 @@ def parallel_phase(seed: int, clips: torch.Tensor) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["bf16", "parallel", "sequence"],
+    ap.add_argument("--only", choices=["kernels", "bf16", "parallel", "sequence"],
                     help="run the device and build phases and this phase (or this "
                          "part of the parallel phase) alone")
     args = ap.parse_args(argv)
@@ -2455,7 +2545,10 @@ def main(argv=None) -> int:
     if args.only == "sequence":
         seq = sequence_part(args.seed, torch.cuda.device_count())
         print(json.dumps({"parallel_part": "sequence", "sequence": seq}), flush=True)
-    if args.only == "bf16":
+    if args.only == "kernels":
+        ph.done("kernels", kernels=[kernels_phase(clips, gen), phaser_row(
+            clips, torch.Generator().manual_seed(args.seed + 1), args.seed + 1)])
+    elif args.only == "bf16":
         ph.done("bf16", **bf16_run(args.seed, clips))
     elif args.only:
         ph.done(args.only)

@@ -34,6 +34,7 @@ from remfx_tpu_torch.models.batchnorm import BatchNorm2d
 from remfx_tpu_torch.ops.mel import MelSpectrogram
 from remfx_tpu_torch.ops.resample import resample
 from remfx_tpu_torch.parallel.mesh import current_split
+from remfx_tpu_torch.utils.device import cpu_bf16_convolutions
 
 
 class ConvBlock(nn.Module):
@@ -141,12 +142,14 @@ class Cnn14(nn.Module):
         return (m - mean) / torch.clamp(torch.sqrt(var), min=1e-6)
 
     def embed(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        """The 2048-d post-fc1 ReLU features."""
-        h = self.front_end(x, generator)[:, None]  # (B, 1, mel, time)
-        for i in range(1, 6):
-            h = getattr(self, f"conv_block{i}")(h, (2, 2))
-            h = dropout(h, 0.2, self.training)
-        h = dropout(self.conv_block6(h, (1, 1)), 0.2, self.training)
+        """The 2048-d post-fc1 ReLU features (``forward``'s trunk). A bf16
+        call on the CPU runs under ``cpu_bf16_convolutions``."""
+        with cpu_bf16_convolutions(x):
+            h = self.front_end(x, generator)[:, None]  # (B, 1, mel, time)
+            for i in range(1, 6):
+                h = getattr(self, f"conv_block{i}")(h, (2, 2))
+                h = dropout(h, 0.2, self.training)
+            h = dropout(self.conv_block6(h, (1, 1)), 0.2, self.training)
         # (B, C, mel', time'): reduce time (mean), then mel (max + mean)
         h = h.mean(dim=3)
         h = h.max(dim=2).values + h.mean(dim=2)

@@ -27,7 +27,7 @@ from torch import nn
 
 from remfx_tpu_torch.models.cnn14 import Cnn14
 from remfx_tpu_torch.ops.resample import resample
-from remfx_tpu_torch.utils.device import resolve_device
+from remfx_tpu_torch.utils.device import cpu_bf16_convolutions, resolve_device
 
 EMBED_DIMS = {
     "panns": 2048,  # PANNs HEAR scene embeddings @32k
@@ -68,15 +68,17 @@ class EmbeddingClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         """``x (B, C, T)`` or ``(B, T)``; ``generator`` is taken for the
-        classifier task's signature and not read (no random draws here)."""
-        if x.dim() == 3:
-            # mono-sum channels like every other audio entry point
-            x = x.sum(dim=1)
-        if int(self.sample_rate) != int(self.embed_rate):
-            x = resample(x, int(self.sample_rate), int(self.embed_rate))
-        with torch.no_grad():
-            emb = self.embed_fn(x)
-        return self.proj(emb)
+        classifier task's signature and not read (no random draws here). A
+        bf16 call on the CPU runs under ``cpu_bf16_convolutions``."""
+        with cpu_bf16_convolutions(x):
+            if x.dim() == 3:
+                # mono-sum channels like every other audio entry point
+                x = x.sum(dim=1)
+            if int(self.sample_rate) != int(self.embed_rate):
+                x = resample(x, int(self.sample_rate), int(self.embed_rate))
+            with torch.no_grad():
+                emb = self.embed_fn(x)
+            return self.proj(emb)
 
 
 class PannsEmbedding:

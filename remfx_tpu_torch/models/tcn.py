@@ -25,6 +25,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from remfx_tpu_torch.utils.crop import causal_crop, center_crop
+from remfx_tpu_torch.utils.device import recompute_context
 
 
 class PReLU(nn.Module):
@@ -81,7 +82,9 @@ class TCN(nn.Module):
         """x: (B, C_in, T) -> (B, C_out, T - receptive_field + 1)."""
         remat = self.remat and self.training and torch.is_grad_enabled()
         for block in self.process_blocks:
-            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+            # the backward's recomputation keeps the forward's bf16 guard
+            x = (checkpoint(block, x, use_reentrant=False, context_fn=recompute_context)
+                 if remat else block(x))
         return torch.tanh(self.output(x))
 
     def compute_receptive_field(self) -> int:

@@ -5,7 +5,8 @@ remfx/models.py:259-390). ``forward(x)`` is the model's output, as
 ``nn.Module`` has it; the JAX wrapper's ``forward((x, target))`` is
 ``loss_and_output`` here. With ``residual``, the wrapper adds the input
 back (``x[..., :T_out]``), the identity-start mode of
-``make_demucs(identity_init=True)``. The JAX wrapper's
+``make_demucs(identity_init=True)``. A bf16 call on the CPU runs under
+``utils/device.py:cpu_bf16_convolutions``. The JAX wrapper's
 ``takes_train_flag`` is ``train()`` / ``eval()`` here.
 """
 
@@ -15,6 +16,7 @@ import torch
 from torch import nn
 
 from remfx_tpu_torch.losses import removal_loss
+from remfx_tpu_torch.utils.device import cpu_bf16_convolutions
 
 
 class ModelWrapper(nn.Module):
@@ -26,7 +28,8 @@ class ModelWrapper(nn.Module):
         self.residual = residual
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.module(x)
+        with cpu_bf16_convolutions(x):  # bf16 on the CPU: off oneDNN's faults
+            out = self.module(x)
         if self.residual:
             out = out + x[..., : out.shape[-1]]
         return out

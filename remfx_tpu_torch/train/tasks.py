@@ -64,6 +64,7 @@ from remfx_tpu_torch.losses import multi_resolution_stft_loss, si_sdr
 from remfx_tpu_torch.parallel.mesh import Rows, all_reduce_mean_, split_batch
 from remfx_tpu_torch.train.metrics import multilabel_f1
 from remfx_tpu_torch.utils.crop import causal_crop
+from remfx_tpu_torch.utils.device import cpu_bf16_convolutions
 
 HALF_PRECISIONS = ("bf16", "bf16-mixed", "bf16-true")
 
@@ -293,7 +294,14 @@ class RemovalTask(_Optimizing):
         }
 
     def _loss_and_output(self, x, y, backward: bool = False):
-        """-> (loss, output); with ``backward``, after the backward pass."""
+        """-> (loss, output); with ``backward``, after the backward pass. In
+        bf16 on the CPU, forward and backward run under
+        ``cpu_bf16_convolutions``, the recomputation of checkpointed
+        blocks with them."""
+        with cpu_bf16_convolutions(x, self._half):
+            return self._loss_and_output_in(x, y, backward)
+
+    def _loss_and_output_in(self, x, y, backward: bool):
         if not self._half or self.sharded:  # FSDP's policy makes the bf16 copies
             loss, output = self.wrapper.loss_and_output(
                 (x.to(torch.bfloat16) if self._half else x, y))

@@ -526,56 +526,113 @@ def _phaser_case(B, C, T, seed=0):
 
 # 40 rows: two blocks; 5000 samples: 156 lines of 32 and a tail; 31: the tail
 # alone; 8 x 2 x 16384: the channel's shape, cut in time
-@pytest.mark.parametrize("B,C,T", [(3, 1, 5000), (20, 2, 1000), (8, 2, 31),
-                                   (8, 2, 16384)])
+PHASER_SHAPES = [(3, 1, 5000), (20, 2, 1000), (8, 2, 31), (8, 2, 16384)]
+
+
+@pytest.mark.parametrize("B,C,T", PHASER_SHAPES)
 def test_phaser_kernel_equals_plain_bit_for_bit(cuda, B, C, T):
-    """Every product and sum of the kernel rounds to nearest in the plain
-    version's order (no FMA), so the two agree bit for bit, the plain
+    """Every product and sum of the serial kernel rounds to nearest in the
+    plain version's order (no FMA), so the two agree bit for bit, the plain
     version run on the host from the same coefficient."""
-    from remfx_tpu_torch.ops.phaser import phaser, phaser_plain
+    from remfx_tpu_torch.ops.phaser import phaser_plain, phaser_serial
 
     x, a, fb, mix = _phaser_case(B, C, T)
-    before = phaser.launches
-    got = phaser(x, a, fb, mix)
+    before = phaser_serial.launches
+    got = phaser_serial(x, a, fb, mix)
     torch.cuda.synchronize()
-    assert phaser.launches == before + 1
+    assert phaser_serial.launches == before + 1
     want = phaser_plain(x.cpu(), a.cpu(), fb.cpu(), mix.cpu())
     assert torch.equal(got.cpu(), want)
 
 
 def test_phaser_unaligned_rows_take_the_scalar_path(cuda):
     # a row stride of 4097 floats leaves rows 1 and 2 off 16-byte alignment
-    from remfx_tpu_torch.ops.phaser import phaser, phaser_plain
+    from remfx_tpu_torch.ops.phaser import phaser_plain, phaser_serial
 
     x, a, fb, mix = _phaser_case(3, 1, 4097, seed=1)
-    got = phaser(x, a, fb, mix)
+    got = phaser_serial(x, a, fb, mix)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), phaser_plain(x.cpu(), a.cpu(), fb.cpu(), mix.cpu()))
+
+
+def _phaser_hard_case(T, seed=0):
+    """The slowest poles (rate 0.25 Hz, depth 0.6, feedback 0.6, from sample
+    140000 of the LFO: a near -0.9968) for 2 examples x 2 channels, the
+    second a loud burst then digital silence."""
+    from remfx_tpu_torch.fx import phaser as tph
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((0.5 * rng.standard_normal((2, 2, T))).astype(np.float32))
+    x[1, :, 200:] = 0.0
+    params = {k: torch.full((2,), v, device="cuda")
+              for k, v in (("rate_hz", 0.25), ("depth", 0.6), ("centre_frequency_hz", 200.0),
+                           ("feedback", 0.6), ("mix", 0.7))}
+    a = tph.coefficients(params, 140000 + T, SR, torch.device("cuda"))[:, 140000:]
+    return x.cuda(), a.contiguous(), params["feedback"], params["mix"]
+
+
+def _row_rel(got, want):
+    peak = want.abs().amax(dim=-1, keepdim=True)
+    return ((got - want).abs() / peak).max().item()
+
+
+def _split_against_plain(x, a, fb, mix):
+    from remfx_tpu_torch.ops.phaser import SPLIT_TOL, phaser, phaser_plain
+
+    before = phaser.launches
+    got = phaser(x, a, fb, mix)
+    torch.cuda.synchronize()
+    assert phaser.launches == before + 1  # one a call, three device kernels
+    assert bool(torch.isfinite(got).all())
+    want = phaser_plain(x.cpu(), a.cpu(), fb.cpu(), mix.cpu())
+    assert _row_rel(got.cpu(), want) <= SPLIT_TOL
+
+
+@pytest.mark.parametrize("B,C,T", PHASER_SHAPES + [(3, 1, 4097)])
+def test_split_phaser_kernel_within_its_tolerance_of_plain(cuda, B, C, T):
+    """The split kernel (the default) against the plain version on the host,
+    within ``SPLIT_TOL`` of each row's peak; (3, 1, 4097): rows off 16-byte
+    alignment."""
+    _split_against_plain(*_phaser_case(B, C, T, seed=2))
+
+
+@pytest.mark.parametrize("n", ["1", "L-1", "L", "5L+3", "33L+5"])
+def test_split_phaser_kernel_on_the_hard_rows(cuda, n):
+    from remfx_tpu_torch.ops.phaser import CHUNK as L
+
+    T = {"1": 1, "L-1": L - 1, "L": L, "5L+3": 5 * L + 3, "33L+5": 33 * L + 5}[n]
+    _split_against_plain(*_phaser_hard_case(T))
 
 
 def test_phaser_wrapper_raises_instead_of_falling_back(cuda, monkeypatch):
     from remfx_tpu_torch.ops import phaser as ops_phaser
 
     x, a, fb, mix = _phaser_case(2, 1, 100)
-    with pytest.raises(TypeError):
-        ops_phaser.phaser(x.double(), a, fb, mix)
-    with pytest.raises(ValueError):
-        ops_phaser.phaser(x, a.cpu(), fb, mix)  # coefficient left on the CPU
+    wrappers = (ops_phaser.phaser, ops_phaser.phaser_serial)
+    for fn in wrappers:
+        with pytest.raises(TypeError):
+            fn(x.double(), a, fb, mix)
+        with pytest.raises(ValueError):
+            fn(x, a.cpu(), fb, mix)  # coefficient left on the CPU
 
     class Refused:
         @staticmethod
         def remfx_phaser(*args):
             return 9  # cudaErrorInvalidConfiguration
 
+        remfx_phaser_serial = remfx_phaser
+
     monkeypatch.setattr(ops_phaser, "_lib", lambda: Refused)
-    before = ops_phaser.phaser.launches
-    with pytest.raises(RuntimeError, match="phaser kernel launch failed"):
-        ops_phaser.phaser(x, a, fb, mix)
-    assert ops_phaser.phaser.launches == before
+    for fn in wrappers:
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="phaser kernel launch failed"):
+            fn(x, a, fb, mix)
+        assert fn.launches == before
 
     def no_compiler():
         raise RuntimeError("nvcc not found")
 
     monkeypatch.setattr(ops_phaser, "_lib", no_compiler)
-    with pytest.raises(RuntimeError, match="nvcc"):
-        ops_phaser.phaser(x, a, fb, mix)
+    for fn in wrappers:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            fn(x, a, fb, mix)

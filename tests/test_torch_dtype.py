@@ -35,8 +35,10 @@ error is the compute's alone. Cnn14 is compared on its 2048-d embedding
   matmuls (the DCUNet calls ``F.conv2d`` on its modules' weights), find
   only bf16 inputs: no layer is promoted silently.
 
-Every bf16 convolution here runs as ``Fp32Convolutions`` has it: the
-oneDNN of torch 2.13.0+cpu computes some wrong on a CPU with AMX.
+Every bf16 convolution here runs under the port's own guard
+(``utils/device.py:cpu_bf16_convolutions``, entered by ``sample``, the
+classifiers and the chain): the oneDNN of torch 2.13.0+cpu computes some
+wrong on a CPU with AMX.
 
 The chain: five small TCNs (``tests/test_dtype.py``'s) on 8 rows in bf16,
 regroup against single within the JAX package's own 2e-2 absolute; the
@@ -111,30 +113,6 @@ TOL = {"tcn": 0.015, "demucs": 0.25, "dcunet": 0.06, "dcunet_gauss": 0.07,
        "umx": 0.1, "umx_em": 0.1, "dptnet": 0.16, "cnn14_48k": 0.06,
        "cnn14_32k": 0.06}
 CHAIN_TOL = 0.02  # x the JAX fp32 chain's RMS (measured 0.0)
-
-
-class Fp32Convolutions(TorchFunctionMode):
-    """Every bf16 convolution as a sound bf16 kernel computes it (cuDNN's
-    on the card, XLA's on the CPU): the bf16 operands' products and sums in
-    fp32, the result rounded to bf16 once; the gradients likewise, through
-    the casts. On a CPU with AMX, torch 2.13.0+cpu's oneDNN returns some
-    bf16 convolutions wrong (``F.conv1d`` of 8 to 16 channels at stride 4
-    in the small HDemucs: 0.73 x the output's norm off, where one rounding
-    is 1.7e-3); torch's own CPU kernels are right but take minutes on the
-    Large-DCUNet-20s."""
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func in CONVOLUTIONS and args[0].dtype == BF16:
-            return func(*(a.float() if isinstance(a, torch.Tensor) else a for a in args),
-                        **kwargs).to(BF16)
-        return func(*args, **kwargs)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def fp32_convolutions():
-    with Fp32Convolutions():
-        yield
 
 
 def _cast_bf16(variables):

@@ -16,7 +16,25 @@ the CUDA kernel (``csrc/phaser.cu``) equals bit for bit on the card
     of the coefficient and of six all-passes with feedback 0.6; measured
     5.0e-7 mono, 7.7e-7 stereo);
   * ``mix = 0`` is the identity bit for bit: ``1 * x + 0 * wet``.
+
+The split kernel's algorithm (``phaser_chunked_plain``, the CPU model of
+its three passes: chunk maps, the prefix scan of each warp's 32 maps, the
+scan over groups, the rerun) on the hard rows: the slowest poles (rate
+0.25 Hz, depth 0.6, feedback 0.6, from sample 140000 of the LFO, where
+``a`` dwells near -0.9968 and each all-pass has a pole at z = 0.9968), and
+digital silence after a loud burst; T in {1, L - 1, L, 5L + 3, 33L + 5}
+(33L + 5: two groups, so the scan over groups runs) at L = 128 and 256.
+Tolerances, of each row's peak:
+
+  * against ``phaser_plain``: ``SPLIT_TOL`` = 1e-5 (measured at most
+    2.0e-6 here; 2.1e-6 at 8 x 2 x 262144 on the same poles);
+  * against the float64 loop from the same start: 1e-5 (measured at most
+    5.4e-6; ``phaser_plain`` itself 4.7e-6: near the pole the fp32
+    coefficient's rounding dominates).
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +45,9 @@ import torch
 from remfx_tpu.fx import phaser as jph
 from remfx_tpu_torch.fx import make_effect
 from remfx_tpu_torch.fx import phaser as tph
-from remfx_tpu_torch.ops.phaser import N_STAGES, phaser, phaser_plain
+from remfx_tpu_torch.ops import phaser as ops_phaser
+from remfx_tpu_torch.ops.phaser import (N_STAGES, SPLIT_TOL, phaser, phaser_chunked_plain,
+                                        phaser_plain, phaser_serial)
 
 torch.set_num_threads(2)
 SR = 48000
@@ -61,12 +81,13 @@ def _rel(got, want):
     return np.abs(got - want).max() / np.abs(want).max()
 
 
-def _float64_loop(x, p):
-    """``_render`` in float64: the coefficient, then the scan's ``step``."""
+def _float64_loop(x, p, start=0):
+    """``_render`` in float64: the coefficient, then the scan's ``step``;
+    the LFO from sample ``start``."""
     B, C, T = x.shape
     f_lo, f_hi = 20.0, 0.49 * SR
     col = {k: np.asarray(v, np.float64)[:, None] for k, v in p.items()}
-    n = np.arange(T, dtype=np.float64)
+    n = np.arange(start, start + T, dtype=np.float64)
     lfo = np.sin(2.0 * np.pi * col["rate_hz"] * n / SR)
     norm = np.clip(np.log(col["centre_frequency_hz"] / f_lo) / np.log(f_hi / f_lo)
                    + 0.5 * col["depth"] * lfo, 0.0, 1.0)
@@ -161,3 +182,72 @@ def test_phaser_batch_render_equals_per_example_render():
     for i in range(2):
         one = eff.render(x[i], {k: v[i] for k, v in p.items()})
         assert torch.equal(one, batch[i])
+
+
+# ------------------------------------------------- the split kernel's algorithm
+
+SLOW = {"rate_hz": [0.25, 0.25], "depth": [0.6, 0.6],
+        "centre_frequency_hz": [200.0, 200.0], "feedback": [0.6, 0.6],
+        "mix": [0.7, 0.7]}
+DWELL = 140000  # the LFO's sample where the slowest poles begin
+
+
+def _hard_rows(T):
+    """Two examples x 2 channels on the slowest poles: noise throughout, and
+    a loud burst (the first 200 samples) then digital silence."""
+    x = _audio(2, 2, T=T, seed=7)
+    x[0] = np.random.default_rng(8).standard_normal((2, T)).astype(np.float32) * 0.5
+    x[1, :, 200:] = 0.0
+    a = tph.coefficients(_torch_params(SLOW), DWELL + T, SR, "cpu")[:, DWELL:].contiguous()
+    return torch.from_numpy(x), a
+
+
+def _row_rel(got, want):
+    peak = np.abs(want).max(axis=-1, keepdims=True)
+    return float((np.abs(got - want) / peak).max())
+
+
+@pytest.mark.parametrize("L", [128, 256])
+@pytest.mark.parametrize("n", ["1", "L-1", "L", "5L+3", "33L+5"])
+def test_chunked_model_on_the_hard_rows(L, n):
+    T = {"1": 1, "L-1": L - 1, "L": L, "5L+3": 5 * L + 3, "33L+5": 33 * L + 5}[n]
+    x, a = _hard_rows(T)
+    fb, mix = torch.tensor(SLOW["feedback"]), torch.tensor(SLOW["mix"])
+    if T > 1000:
+        assert float(a.max()) < -0.9967  # the dwell: a pole at z > 0.9967
+    got = phaser_chunked_plain(x, a, fb, mix, chunk=L).numpy()
+    assert got.shape == x.shape and np.isfinite(got).all()
+    assert _row_rel(got, phaser_plain(x, a, fb, mix).numpy()) <= SPLIT_TOL
+    assert _row_rel(got, _float64_loop(x.numpy(), SLOW, start=DWELL)) <= 1e-5
+
+
+def test_chunked_model_at_the_range_ends_matches_jax(renders):
+    """The algorithm on ``renders``' rows, against the JAX package's scan."""
+    x, _, want = renders[2]
+    p = _torch_params(PARAMS)
+    a = tph.coefficients(p, T, SR, "cpu")
+    got = phaser_chunked_plain(torch.from_numpy(x), a, p["feedback"], p["mix"]).numpy()
+    assert _rel(got, want) <= 1e-5
+
+
+def test_phaser_serial_on_the_cpu_is_the_plain_version():
+    x, a = _hard_rows(300)
+    fb, mix = torch.tensor([0.6, 0.2]), torch.tensor([0.7, 0.3])
+    before = phaser_serial.launches, phaser.launches
+    assert torch.equal(phaser_serial(x, a, fb, mix), phaser_plain(x, a, fb, mix))
+    assert (phaser_serial.launches, phaser.launches) == before
+    with pytest.raises(ValueError, match="no phaser kernel"):
+        phaser_serial(x.to("meta"), a.to("meta"), fb.to("meta"), mix.to("meta"))
+
+
+def test_the_wrapper_mirrors_the_kernel_constants():
+    """The wrapper sizes the kernel's scratch by CHUNK, GROUP, _MAP and
+    _START; csrc/phaser.cu compiles them in."""
+    src = (Path(ops_phaser.__file__).parents[1] / "csrc" / "phaser.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kWarp") == ops_phaser.GROUP and const("kChunk") == ops_phaser.CHUNK
+    assert const("kStart") == ops_phaser._START
+    assert const("kStages") == N_STAGES and ops_phaser._MAP == 7 * 7 + 7

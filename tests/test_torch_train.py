@@ -32,25 +32,30 @@ relative. MultiSteps accumulation: the parameters unchanged on the first
 k-1 micro-batches and equal to optax's (1e-6 relative) on the k-th.
 bf16-mixed, one step of each of the TCN, HDemucs, the Mini-DCUNet-6,
 UMX (hidden 64, the LSTM's dropout 0 on both sides) and DPTNet (chunk 20,
-one repeat), on torch's own CPU convolutions (oneDNN's bf16 convolutions
-are wrong for some shapes on a CPU with AMX: ``torch_cpu_convolutions``;
-with them HDemucs's step moved 22.9% of its elements beyond 0.5 lr from
-the JAX package's and 23.5% from the port's own fp32 step, the
-gradients of its deep layers as far from fp32's as their own norm). The
+one repeat). Its bf16 convolutions run under the port's own guard
+(``RemovalTask`` enters ``utils/device.py:cpu_bf16_convolutions`` around
+the loss and its backward pass): oneDNN's bf16 convolutions are wrong for
+some shapes on a CPU with AMX, and with them HDemucs's step moved 22.9% of
+its elements beyond 0.5 lr from the JAX package's and 23.5% from the
+port's own fp32 step, the gradients of its deep layers as far from fp32's
+as their own norm. The measurements below were taken under the guard. The
 loss to 2^-8 relative, one bf16 ulp, of the JAX package's (measured
-8.1e-6, 2.3e-5, 3.9e-5, 2.3e-4 and 4.8e-5; the port's STFTs run in fp32
+8.0e-6, 9.9e-6, 1.5e-5, 1.0e-4 and 5.7e-5; the port's STFTs run in fp32
 where JAX's DFT runs in bf16) and of the port's own fp32 step's from the
-same weights (measured 1.9e-4, 2.9e-5, 7.4e-4, 1.1e-5 and 9.0e-5). The
+same weights (measured 1.9e-4, 1.7e-5, 6.9e-4, 1.2e-4 and 8.2e-5). The
 parameters after the step, against the JAX package's bf16-mixed step's
 and against the port's own fp32 step's, each within 2.05 lr (a first
 Adam step of either sign: measured 2.0 lr in each, where a bf16
 gradient's sign differs) with at most a share of the elements beyond 0.5
-lr: the TCN 2% (measured 3 and 5 of 601), HDemucs 12% (8.6% and 6.9% of
+lr: the TCN 2% (measured 3 and 5 of 601), HDemucs 12% (8.1% and 8.3% of
 28,627; the JAX package's own bf16 step moves 8.6% from its fp32 step),
-the DCUNet 12% (9.7% and 10.8% of 91,744), UMX 12% (9.3% and 10.9% of
-118,150) and DPTNet 2% (0.06% and 0.29% of 1,433,025); the running
-statistics (fp32 here, rounded to bf16 by the JAX package) within 2e-2
-of their largest value (measured 1.7e-3 for the DCUNet, 1.2e-2 for UMX).
+the DCUNet 12% (7.9% and 9.4% of 91,744), UMX 12% (8.5% and 11.9% of
+118,150: its LSTM and linear layers run on oneDNN's bf16 kernels, which
+the guard leaves alone; with oneDNN off for the process, as before the
+guard, 9.3% and 10.9%) and DPTNet 2% (0.06% and 0.26% of 1,433,025);
+the running statistics (fp32 here, rounded to bf16 by the JAX package)
+within 2e-2 of their largest value (measured 1.7e-3 for the DCUNet,
+1.3e-2 for UMX).
 The classifier's losses and metrics on the same probabilities: 1e-6
 relative.
 """
@@ -334,25 +339,8 @@ def _no_dropout_lstm(*args, **kwargs):
     return jlstm.LSTM(*args, **kwargs)
 
 
-@pytest.fixture
-def torch_cpu_convolutions():
-    """torch's own CPU convolutions in place of oneDNN's: on a CPU with
-    AMX, the oneDNN of torch 2.13.0+cpu returns some bf16 convolutions
-    wrong (``F.conv1d`` of 16 channels at stride 4 off by 1.1 x the
-    output's norm, where one rounding is 1.7e-3), and the deep layers of
-    the small HDemucs meet such shapes. (``tests/test_torch_dtype.py``'s
-    ``Fp32Convolutions`` mode would be quicker, but the TCN's activation
-    checkpointing recomputes its blocks in the backward pass outside it.)"""
-    enabled = torch.backends.mkldnn.enabled
-    torch.backends.mkldnn.enabled = False
-    try:
-        yield
-    finally:
-        torch.backends.mkldnn.enabled = enabled
-
-
 @pytest.mark.parametrize("name", sorted(BF16_CASES))
-def test_bf16_mixed_step_matches_jax(name, monkeypatch, torch_cpu_convolutions):
+def test_bf16_mixed_step_matches_jax(name, monkeypatch):
     net, bridge, T, moved = BF16_CASES[name]
     if name == "umx":  # dropout 0 on both sides, as tests/test_torch_umx.py
         monkeypatch.setattr(jumx, "LSTM", _no_dropout_lstm)
