@@ -23,7 +23,9 @@ Dispatch modes, as in the JAX package:
   label is on (``utils.regroup.bucket_size``), gathered and scattered
   back; the dense masked stage when most rows are on; and for a stage no
   row selects, only the passthrough's crop to the stage's output length,
-  without running the model (``ModelWrapper.output_length``).
+  without running the model (``ModelWrapper.output_length``). It counts
+  the rows its models run and, of those, the rows no label selected
+  (``ChainInference.regroup_rows``, ``regroup_unselected``).
 
 ``forward`` / ``test_step`` / ``sample`` give the loss and the metrics
 the system reports (SI-SDR and MR-STFT against the dry target).
@@ -40,6 +42,7 @@ from remfx_tpu_torch.losses import multi_resolution_stft_loss, removal_loss, si_
 from remfx_tpu_torch.utils.crop import causal_crop
 from remfx_tpu_torch.utils.device import resolve_device
 from remfx_tpu_torch.utils.regroup import bucket_size
+from remfx_tpu_torch.utils.spans import span
 
 DEFAULT_ORDER = (
     "RandomPedalboardDistortion",
@@ -107,7 +110,14 @@ class ChainInference:
 
     ``shuffle_effect_order`` makes ``test_step`` shuffle ``effect_order``
     in place before each batch, from ``random.Random(seed)``, as the
-    reference does under its seeded run (its quirk 11)."""
+    reference does under its seeded run (its quirk 11).
+
+    ``regroup_rows`` and ``regroup_unselected`` count, over the process,
+    the rows the regroup dispatch ran its models on and those of them that
+    no label selected (``utils/spans.py``)."""
+
+    regroup_rows = 0
+    regroup_unselected = 0
 
     def __init__(
         self,
@@ -144,7 +154,8 @@ class ChainInference:
         if self.classifier is None:
             raise ValueError("no classifier configured")
         resolve_device(x.device)
-        return threshold_detect(self.classifier, self.threshold)(x)
+        with span("chain.detect"):
+            return threshold_detect(self.classifier, self.threshold)(x)
 
     def remove(self, x: torch.Tensor, labels: torch.Tensor, order=None):
         """Apply the masked removal stages for the given labels (no
@@ -153,27 +164,35 @@ class ChainInference:
         resolve_device(x.device)
         y = x
         for wrapper, idx in self._stages(order):
-            y = masked_stage(wrapper, idx)(y, labels)
+            with span(f"chain.stage.{ALL_EFFECTS[idx]}"):
+                y = masked_stage(wrapper, idx)(y, labels)
         return y, labels
 
     def _remove_regrouped(self, x: torch.Tensor, labels: torch.Tensor, order):
-        counts = (labels > 0.5).sum(dim=0).tolist()  # the one host readback
+        with span("chain.counts"):
+            counts = (labels > 0.5).sum(dim=0).tolist()  # the one host readback
         B = x.shape[0]
         y = x
         for wrapper, idx in self._stages(order):
             n = int(counts[idx])
             if n == 0:
-                # the masked modes run, and crop for, every stage: keep
-                # their length without running the model
-                out_len = wrapper.output_length(y.shape[-1])
-                if out_len < y.shape[-1]:
-                    y = causal_crop(y, out_len)
+                with span(f"chain.stage.{ALL_EFFECTS[idx]} n=0 b=skip"):
+                    # the masked modes run, and crop for, every stage: keep
+                    # their length without running the model
+                    out_len = wrapper.output_length(y.shape[-1])
+                    if out_len < y.shape[-1]:
+                        y = causal_crop(y, out_len)
                 continue
             bucket = bucket_size(n, B)
-            if bucket is None or bucket >= B:
-                y = masked_stage(wrapper, idx)(y, labels)
-            else:
-                y = regrouped_stage(wrapper, idx, n, bucket)(y, labels)
+            dense = bucket is None or bucket >= B
+            rows = B if dense else bucket
+            ChainInference.regroup_rows += rows
+            ChainInference.regroup_unselected += rows - n
+            with span(f"chain.stage.{ALL_EFFECTS[idx]} n={n} b={'dense' if dense else rows}"):
+                if dense:
+                    y = masked_stage(wrapper, idx)(y, labels)
+                else:
+                    y = regrouped_stage(wrapper, idx, n, bucket)(y, labels)
         return y, labels
 
     def run(self, x: torch.Tensor, labels: torch.Tensor | None = None,

@@ -5,13 +5,16 @@ torch's parameterisation on purpose (``weight_ih_l{n}[_reverse]``,
 ``weight_hh_*``, ``bias_ih_*``, ``bias_hh_*``, gate order i, f, g, o,
 zero initial state), so here it is ``torch.nn.LSTM`` itself, returning
 only the output sequence. ``dropout`` is torch's (and the JAX module's):
-on the outputs of every layer but the last, in train mode only.
+on the outputs of every layer but the last, in train mode only. A call
+is the span ``lstm`` (``utils/spans.py``).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from remfx_tpu_torch.utils.spans import span
 
 
 class LSTM(nn.LSTM):
@@ -22,4 +25,5 @@ class LSTM(nn.LSTM):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (T, B, input_size) -> (T, B, hidden_size * directions)."""
-        return super().forward(x)[0]
+        with span("lstm"):
+            return super().forward(x)[0]

@@ -7,7 +7,8 @@ remfx/models.py:259-390). ``forward(x)`` is the model's output, as
 back (``x[..., :T_out]``), the identity-start mode of
 ``make_demucs(identity_init=True)``. A bf16 call on the CPU runs under
 ``utils/device.py:cpu_bf16_convolutions``. The JAX wrapper's
-``takes_train_flag`` is ``train()`` / ``eval()`` here.
+``takes_train_flag`` is ``train()`` / ``eval()`` here. ``forward`` is the
+span ``model.<name>`` and the loss the span ``loss`` (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from torch import nn
 
 from remfx_tpu_torch.losses import removal_loss
 from remfx_tpu_torch.utils.device import cpu_bf16_convolutions
+from remfx_tpu_torch.utils.spans import span
 
 
 class ModelWrapper(nn.Module):
@@ -28,11 +30,12 @@ class ModelWrapper(nn.Module):
         self.residual = residual
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        with cpu_bf16_convolutions(x):  # bf16 on the CPU: off oneDNN's faults
-            out = self.module(x)
-        if self.residual:
-            out = out + x[..., : out.shape[-1]]
-        return out
+        with span(f"model.{self.name}"):
+            with cpu_bf16_convolutions(x):  # bf16 on the CPU: off oneDNN's faults
+                out = self.module(x)
+            if self.residual:
+                out = out + x[..., : out.shape[-1]]
+            return out
 
     def loss_and_output(self, batch):
         """``(x, target) -> (loss, output)``: the JAX wrapper's ``forward``
@@ -45,7 +48,8 @@ class ModelWrapper(nn.Module):
             # bf16-mixed: the loss takes the target in the output's dtype
             # (remfx_tpu/models/wrappers.py:71-79)
             target = target.to(output.dtype)
-        return removal_loss(output, target), output
+        with span("loss"):
+            return removal_loss(output, target), output
 
     @torch.no_grad()
     def sample(self, x: torch.Tensor) -> torch.Tensor:

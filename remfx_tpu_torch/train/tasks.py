@@ -49,6 +49,11 @@ reach the fp32 masters), the wrapper casts the target, and the norms run
 on the bf16 activations as flax's do (in fp32 inside, ``models/
 batchnorm.py``). The BatchNorm running statistics stay fp32; JAX rounds
 the old ones to bf16 before it updates them.
+
+A removal step is the span ``train.step`` (``utils/spans.py``), its phases
+the spans ``train.forward``, ``train.backward``, ``train.update`` (with
+``train.clip`` inside it) and ``train.metrics``; ``train.update`` covers the
+classifier's update too.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from remfx_tpu_torch.parallel.mesh import Rows, all_reduce_mean_, split_batch
 from remfx_tpu_torch.train.metrics import multilabel_f1
 from remfx_tpu_torch.utils.crop import causal_crop
 from remfx_tpu_torch.utils.device import cpu_bf16_convolutions
+from remfx_tpu_torch.utils.spans import span
 
 HALF_PRECISIONS = ("bf16", "bf16-mixed", "bf16-true")
 
@@ -194,33 +200,35 @@ class _Optimizing:
         return Rows(0, batch[0].shape[0], batch[0].shape[0]) if rows is None else rows
 
     def _apply_gradients(self, state: TrainState):
-        params = [p for p in state.model.parameters() if p.requires_grad]
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        if self.mesh is not None and not self.sharded:
-            all_reduce_mean_(grads, self.mesh.get_group("dp"))
-        k = self.accumulate_grad_batches
-        state.step += 1
-        if k > 1:
-            if state.acc_grads is None:
-                state.acc_grads = [torch.zeros_like(p) for p in params]
-            n = state.mini_step
-            with torch.no_grad():
-                for acc, g in zip(state.acc_grads, grads):
-                    acc.add_((g - acc) / (n + 1))
-            state.mini_step = (n + 1) % k
-            if n != k - 1:
-                state.optimizer.zero_grad(set_to_none=True)
-                return
-            grads = [a.clone() for a in state.acc_grads]
-            for acc in state.acc_grads:
-                acc.zero_()
-        clip_by_global_norm_(grads, self.gradient_clip_val)
-        for p, g in zip(params, grads):
-            p.grad = g
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        if state.scheduler is not None:
-            state.scheduler.step()
+        with span("train.update"):
+            params = [p for p in state.model.parameters() if p.requires_grad]
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            if self.mesh is not None and not self.sharded:
+                all_reduce_mean_(grads, self.mesh.get_group("dp"))
+            k = self.accumulate_grad_batches
+            state.step += 1
+            if k > 1:
+                if state.acc_grads is None:
+                    state.acc_grads = [torch.zeros_like(p) for p in params]
+                n = state.mini_step
+                with torch.no_grad():
+                    for acc, g in zip(state.acc_grads, grads):
+                        acc.add_((g - acc) / (n + 1))
+                state.mini_step = (n + 1) % k
+                if n != k - 1:
+                    state.optimizer.zero_grad(set_to_none=True)
+                    return
+                grads = [a.clone() for a in state.acc_grads]
+                for acc in state.acc_grads:
+                    acc.zero_()
+            with span("train.clip"):
+                clip_by_global_norm_(grads, self.gradient_clip_val)
+            for p, g in zip(params, grads):
+                p.grad = g
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
+            if state.scheduler is not None:
+                state.scheduler.step()
 
 
 class _LossCall(nn.Module):
@@ -235,10 +243,19 @@ class _LossCall(nn.Module):
         self.backward = backward
 
     def forward(self, batch):
-        loss, output = self.w.loss_and_output(batch)
-        if self.backward:
-            loss.float().backward()
-        return loss, output
+        return _forward_backward(self.w, batch, self.backward)
+
+
+def _forward_backward(wrapper, batch, backward: bool):
+    """``wrapper.loss_and_output(batch)``, then with ``backward`` the
+    backward pass, each a span of the training step."""
+    if not backward:
+        return wrapper.loss_and_output(batch)
+    with span("train.forward"):
+        loss, output = wrapper.loss_and_output(batch)
+    with span("train.backward"):
+        loss.float().backward()
+    return loss, output
 
 
 # ------------------------------------------------------------------ removal
@@ -303,11 +320,8 @@ class RemovalTask(_Optimizing):
 
     def _loss_and_output_in(self, x, y, backward: bool):
         if not self._half or self.sharded:  # FSDP's policy makes the bf16 copies
-            loss, output = self.wrapper.loss_and_output(
-                (x.to(torch.bfloat16) if self._half else x, y))
-            if backward:
-                loss.float().backward()
-            return loss, output
+            return _forward_backward(
+                self.wrapper, (x.to(torch.bfloat16) if self._half else x, y), backward)
         call = _LossCall(self.wrapper, backward)
         half = {f"w.{k}": v.to(torch.bfloat16) if v.dtype == torch.float32 else v
                 for k, v in self.wrapper.named_parameters()}
@@ -319,13 +333,14 @@ class RemovalTask(_Optimizing):
         parallelism): forward, backward and (every k-th) the update.
         -> (state, metrics), the metrics as 0-d tensors on the device."""
         x, y = batch
-        self.wrapper.train()
-        with split_batch(self._rows(batch, rows)):
-            loss, output = self._loss_and_output(x, y, backward=True)
-        loss = loss.float()
-        self._apply_gradients(state)
-        with torch.no_grad():
-            metrics = self._metrics(output.detach().float(), x, y, loss.detach(), "train")
+        with span("train.step"):
+            self.wrapper.train()
+            with split_batch(self._rows(batch, rows)):
+                loss, output = self._loss_and_output(x, y, backward=True)
+            loss = loss.float()
+            self._apply_gradients(state)
+            with torch.no_grad(), span("train.metrics"):
+                metrics = self._metrics(output.detach().float(), x, y, loss.detach(), "train")
         return state, metrics
 
     @torch.no_grad()

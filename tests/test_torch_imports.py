@@ -16,7 +16,7 @@ TRAINING_PATH = (
     "config.core", "config.experiments", "data.sources", "data.datasets",
     "models.batchnorm", "ops.resample", "train", "train.__main__",
     "train.checkpoint", "train.loggers", "train.loop", "train.metrics",
-    "train.tasks", "utils.heartbeat", "utils.logging", "utils.timing",
+    "train.tasks", "utils.heartbeat", "utils.logging", "utils.spans",
 )
 CHAIN_PATH = (
     "compat.ocdbt", "chain.build", "chain.stream", "cli", "cli.demo_detect",

@@ -633,11 +633,9 @@ def test_wandb_logger_offline_fallback(tmp_path):
 
 
 def test_timeit_and_heartbeat(tmp_path, monkeypatch):
-    from remfx_tpu_torch.utils import heartbeat, timing
+    """The heartbeat touches ``$REMFX_HEARTBEAT``; without it, it does nothing."""
+    from remfx_tpu_torch.utils import heartbeat
 
-    calls = []
-    secs, out = timing.timeit(lambda v: calls.append(v) or v, 3, iters=2, warmup=1, repeats=3)
-    assert out == 3 and len(calls) == 1 + 2 * 3 and secs >= 0
     beat = tmp_path / "beat"
     monkeypatch.setenv("REMFX_HEARTBEAT", str(beat))
     monkeypatch.setattr(heartbeat, "_checked", False)
