@@ -144,6 +144,17 @@ Then the mixing channel and the evaluation surface:
   back-to-back calls (the line's "ms"), the split kernel also by replays
   of a CUDA graph ("graph_ms": the card's time without the host's three
   launches a call), with each pass's device time.
+- the kernels line also holds HDemucs's GroupNorm kernel
+  (csrc/group_norm.cu; no TPU kernel: the JAX package leaves GroupNorm to
+  XLA) at the chain's largest time-branch norm (24 x 96 x 65536) and a
+  frequency-branch one (12288 x 96 x 256) in bf16, each epilogue: against
+  the plain composition in fp32 from the same inputs, two calls bit for
+  bit, timed by events beside the plain composition in bf16 (torch's
+  F.group_norm and activation) and the bytes bound; every norm of the main
+  path's HDemucs (fp32, 8 x 256006, GroupNorm(1) and GroupNorm(4)) against
+  fp64; its launches in one forward of the chain's HDemucs. Every phase
+  line counts the kernel's launches in that phase
+  (group_norm_launches), and the last kernels line gives them by path.
 - channel: RandomAudioEffectsChannel on the demo clips as stereo, 8 x 2 x
   262144, with every stage forced on (the phaser's path: one phaser and
   three envelope launches), then at its default probabilities; every row
@@ -241,6 +252,7 @@ from remfx_tpu_torch.models.wrappers import ModelWrapper
 from remfx_tpu_torch.ops import _build
 from remfx_tpu_torch.ops.envelope import (envelope, envelope_flags,
                                           envelope_plain, envelope_serial)
+from remfx_tpu_torch.ops.group_norm import group_norm, group_norm_plain
 from remfx_tpu_torch.ops.loudness import integrated_loudness, loudness_normalize
 from remfx_tpu_torch.ops.phaser import CHUNK as PHASER_CHUNK
 from remfx_tpu_torch.ops.phaser import SPLIT_TOL, phaser, phaser_plain, phaser_serial
@@ -300,11 +312,17 @@ class Phases:
     def __init__(self):
         self.start = time.perf_counter()
         self.last = self.start
+        self.group_norm = {}  # phase -> the GroupNorm kernel's launches in it
+        self._gn = group_norm.launches
 
     def done(self, phase: str, /, **fields):
         now = time.perf_counter()
+        launched = group_norm.launches - self._gn
+        self._gn = group_norm.launches
+        self.group_norm[phase] = self.group_norm.get(phase, 0) + launched
         line = {"phase": phase, "seconds": round(now - self.last, 3),
-                "total_seconds": round(now - self.start, 3), **fields}
+                "total_seconds": round(now - self.start, 3),
+                "group_norm_launches": launched, **fields}
         print(json.dumps(line), flush=True)
         self.last = now
 
@@ -371,6 +389,9 @@ def load_kernel_modules(dev):
     envelope(x, c, c)
     phaser(x[:, None, :].contiguous(), x, c, c)
     phaser_serial(x[:, None, :].contiguous(), x, c, c)
+    w = torch.ones(4, device=dev)
+    with torch.no_grad():
+        group_norm(x.view(1, 4, 1024), 1, w, w, act="gelu")
     torch.cuda.synchronize()
 
 
@@ -464,6 +485,123 @@ def kernels_phase(clips: torch.Tensor, gen: torch.Generator) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
     }
+
+
+GN_SHAPES = {"time": (24, 96, 65536), "freq": (24 * 512, 96, 256)}
+GN_ACTS = ("gelu", "glu", "glu+residual")
+GN_RTOL, GN_ATOL = 2.0**-8, 1e-3  # bf16 against fp32: one rounding, sums reordered
+GN_FP32_TOL = 1e-5  # fp32 against fp64, of 1 + |value|: fp32 sums of 10^5-10^7 elements
+
+
+def group_norm_main_path(seed: int) -> dict:
+    """Every norm of the main path's HDemucs (fp32, B rows of T_OUT
+    samples, seeded weights: GroupNorm(1) in the DConvs, GroupNorm(4) from
+    layer 4 on), each call of the kernel held to the plain composition in
+    fp64 from the same inputs, with torch's fp32 composition's error beside
+    it -> {"<shape>/g<groups>/<act>": errors}."""
+    dev = torch.device(DEVICE)
+    torch.manual_seed(seed)
+    model = demucs_slot(dev).module
+    cases = {}
+
+    def hook(m, args, kwargs, out):
+        x, res, scale = args[0], kwargs.get("residual"), kwargs.get("scale")
+        act = m.act + ("+residual" if res is not None else "")
+        f64 = [None if t is None else t.double() for t in (x, m.weight, m.bias, res, scale)]
+        want = group_norm_plain(f64[0], m.num_groups, f64[1], f64[2], m.eps, m.act, *f64[3:])
+        torch_fp32 = group_norm_plain(x, m.num_groups, m.weight, m.bias, m.eps, m.act, res,
+                                      scale)
+        key = f"{'x'.join(map(str, x.shape))}/g{m.num_groups}/{act}"
+        err = ((out.double() - want).abs() / (1 + want.abs())).max().item()
+        torch_err = ((torch_fp32.double() - want).abs() / (1 + want.abs())).max().item()
+        prev = cases.get(key, {"err": 0.0, "torch_fp32_err": 0.0, "calls": 0})
+        cases[key] = {"err": max(prev["err"], err),
+                      "torch_fp32_err": max(prev["torch_fp32_err"], torch_err),
+                      "calls": prev["calls"] + 1}
+
+    hooks = [m.register_forward_hook(hook, with_kwargs=True) for m in model.modules()
+             if type(m).__name__ == "GroupNormAct"]
+    x = 0.1 * torch.randn(B, 1, T_OUT, generator=torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    worst = max(c["err"] for c in cases.values())
+    check(worst <= GN_FP32_TOL, f"group_norm in fp32 within {GN_FP32_TOL} of fp64 at the "
+          f"main path's shapes: {worst}")
+    check(any("/g4/" in k for k in cases) and any("/g1/" in k for k in cases),
+          f"the main path has GroupNorm(1) and GroupNorm(4): {sorted(cases)}")
+    return cases
+
+
+def group_norm_row(seed: int) -> dict:
+    """HDemucs's GroupNorm kernel at the chain's shapes (24 rows of an
+    HDemucs stage, bf16): the largest time-branch norm and a frequency-
+    branch one, each epilogue, against the plain composition in fp32 from
+    the same bf16 inputs and bit for bit against itself; "ms" by events over
+    back-to-back calls, "plain_ms" the plain composition in bf16 on the card
+    (torch's F.group_norm and activation, which is also the library's
+    call); the bytes bound reads x and the residual and writes the output
+    once. Then one forward of the chain's HDemucs (bf16, 262144 samples):
+    the kernel's launches, and that no torch GroupNorm kernel ran. Then
+    every norm of the main path's HDemucs in fp32 against fp64."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cases = {}
+    for where, shape in GN_SHAPES.items():
+        C = shape[1]
+        x = (0.3 + torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+        w = (1.0 + 0.5 * torch.randn(C, generator=g, device=dev)).to(torch.bfloat16)
+        b = (0.1 * torch.randn(C, generator=g, device=dev)).to(torch.bfloat16)
+        half = (shape[0], C // 2, *shape[2:])
+        res = torch.randn(half, generator=g, device=dev).to(torch.bfloat16)
+        scale = (0.3 * torch.randn(C // 2, generator=g, device=dev)).to(torch.bfloat16)
+        for act in GN_ACTS:
+            extra = (res, scale) if act == "glu+residual" else (None, None)
+            args = (x, 1, w, b, 1e-5, act.split("+")[0], *extra)
+            with torch.no_grad():
+                got = group_norm(*args)
+                again = group_norm(*args)
+                want = group_norm_plain(*(t.float() if torch.is_tensor(t) else t
+                                          for t in args))
+                diff = (got.float() - want).abs()
+                err = (diff - GN_RTOL * want.abs()).max().item()
+                check(torch.equal(got, again), f"group_norm repeats bit for bit ({where}, {act})")
+                check(err <= GN_ATOL, f"group_norm within {GN_RTOL} + {GN_ATOL} of the fp32 "
+                      f"composition ({where}, {act}): {err}")
+                torch_err = (group_norm_plain(*args).float() - want).abs().max().item()
+                n_bytes = (x.numel() + got.numel() + (res.numel() if extra[0] is not None
+                                                      else 0)) * 2
+                cases[f"{where}.{act}"] = {
+                    "shape": list(shape), "max_abs_err": diff.max().item(),
+                    "torch_bf16_max_abs_err": torch_err,
+                    "ms": time_kernel(lambda: group_norm(*args)),
+                    "plain_ms": time_kernel(lambda: group_norm_plain(*args)),
+                    "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+            del got, again, want, diff
+    torch.manual_seed(seed)
+    model = make_demucs(device=dev).to(torch.bfloat16)
+    xin = (0.1 * torch.randn(1, 1, T, generator=g, device=dev)).to(torch.bfloat16)
+    before = group_norm.launches
+    with torch.no_grad():
+        forward_kernels = device_kernels(lambda: model(xin))
+    launches = group_norm.launches - before
+    moments = [k for k in forward_kernels if "RowwiseMoments" in k]
+    check(launches > 0 and not moments, "HDemucs's norms run the kernel and no torch "
+          f"GroupNorm kernel ({launches} launches, {len(moments)} RowwiseMoments)")
+    return {"name": "group_norm", "route": "cuda",
+            "source": "remfx_tpu_torch/csrc/group_norm.cu", "replaces": None,
+            "cases": cases,
+            "ms": sum(c["ms"] for c in cases.values()),
+            "plain_ms": sum(c["plain_ms"] for c in cases.values()),
+            "library_ms": sum(c["plain_ms"] for c in cases.values()),
+            "bound_ms": sum(c["bound_ms"] for c in cases.values()),
+            "bound_by": "bytes",
+            "launches_per_hdemucs_forward": launches,
+            "main_path_fp32": group_norm_main_path(seed)}
 
 
 def synth_renderer(dev) -> EffectChainRenderer:
@@ -922,9 +1060,12 @@ def bf16_run(seed: int, clips: torch.Tensor) -> dict:
     """The bf16 phase with the kernels' launches on its path (counts at 0
     just before, read just after)."""
     phaser.launches = envelope.launches = 0
+    gn_before = group_norm.launches
     out = bf16_phase(seed, clips)
     torch.cuda.synchronize()
-    out["launches"] = {"envelope": envelope.launches, "phaser": phaser.launches}
+    out["launches"] = {"envelope": envelope.launches, "phaser": phaser.launches,
+                       "group_norm": group_norm.launches - gn_before}
+    check(out["launches"]["group_norm"] > 0, "bf16's HDemucs launched the GroupNorm kernel")
     return out
 
 
@@ -2547,7 +2688,8 @@ def main(argv=None) -> int:
         print(json.dumps({"parallel_part": "sequence", "sequence": seq}), flush=True)
     if args.only == "kernels":
         ph.done("kernels", kernels=[kernels_phase(clips, gen), phaser_row(
-            clips, torch.Generator().manual_seed(args.seed + 1), args.seed + 1)])
+            clips, torch.Generator().manual_seed(args.seed + 1), args.seed + 1),
+            group_norm_row(args.seed)])
     elif args.only == "bf16":
         ph.done("bf16", **bf16_run(args.seed, clips))
     elif args.only:
@@ -2559,11 +2701,13 @@ def main(argv=None) -> int:
         return 0
     row = kernels_phase(clips, gen)
     prow = phaser_row(clips, torch.Generator().manual_seed(args.seed + 1), args.seed + 1)
-    ph.done("kernels", kernels=[row, prow])
+    gnrow = group_norm_row(args.seed)
+    ph.done("kernels", kernels=[row, prow, gnrow])
     phaser.launches = 0  # no path before the channel's renders a phaser
 
     # ---- the main path: counts at 0 just before, read just after ----
     envelope.launches = 0
+    gn_before = group_norm.launches
     params = compressor.sample_params(gen, B, COMP_RANGES, device=dev)
     wet = compressor.render_batch(clips[:, None, :], params, SR)
     torch.cuda.synchronize()
@@ -2622,7 +2766,9 @@ def main(argv=None) -> int:
     check(all(np.isfinite(v) for v in metrics.values()), "test_step finite")
     ph.done("test_step", **metrics,
             peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
-    launches = {"envelope": main_launches + envelope.launches}
+    launches = {"envelope": main_launches + envelope.launches,
+                "group_norm": group_norm.launches - gn_before}
+    check(launches["group_norm"] > 0, "the main path's HDemucs launched the GroupNorm kernel")
     # ---- end of the main path ----
 
     ph.done("cpu_vs_card", **cpu_vs_card(cls, slots, wet, dry))
@@ -2709,7 +2855,12 @@ def main(argv=None) -> int:
                                 "sequence": par["sequence"]["phaser_launches"],
                                 "bf16": bf16["launches"]["phaser"]}
     prow["launches"] = channel["launches"]["phaser"]  # the channel's path
-    print(json.dumps({"kernels": [row, prow]}), flush=True)
+    gnrow["launches_by_path"] = {"render_detect_remove": launches["group_norm"],
+                                 "bf16": bf16["launches"]["group_norm"]}
+    gnrow["launches_by_phase"] = {k: v for k, v in ph.group_norm.items() if v}
+    check(ph.group_norm["train"] > 0, "HDemucs's training under autograd launched the "
+          "GroupNorm kernel")
+    print(json.dumps({"kernels": [row, prow, gnrow]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

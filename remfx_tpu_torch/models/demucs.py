@@ -24,10 +24,17 @@ Structure (defaults: depth 6, kernel 8, stride 4, growth 2):
 * DConv: per depth d, conv k3 dilation 2^d -> GroupNorm(1) -> GELU ->
   [BLSTM on 200-step frames at stride 100, stitched from the centres]
   [LocalState attention with decay bias and a -100 diagonal] -> 1x1 to
-  2C -> GroupNorm(1) -> GLU -> LayerScale (init 1e-4).
+  2C -> GroupNorm(1) -> GLU -> LayerScale (init 1e-4) -> + the input.
 * decoders mirror the encoders with skip sums, 3x3 / k3 rewrites + GLU
   and transposed convs; the spectrogram output is de-normalised,
   iSTFT'd and summed with the de-normalised time-branch output.
+
+Each GroupNorm and the activation after it is one ``GroupNormAct``
+(``ops/group_norm.py``): torch's composition on the CPU, the fused kernel
+of ``csrc/group_norm.cu`` on the card, in inference and under autograd
+alike. A DConv depth's second norm also takes the LayerScale and the
+residual add. The slots of the activations it absorbed hold parameter-free
+``nn.Identity`` modules, so the state-dict names are torchaudio's still.
 
 The JAX package computes the strided and transposed convolutions through
 ``ops/fastconv.py`` and ``ops/subpixel.py``, TPU workarounds whose values
@@ -43,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from remfx_tpu_torch.models.lstm import LSTM
+from remfx_tpu_torch.ops.group_norm import group_norm
 from remfx_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 
 
@@ -50,12 +58,32 @@ NORM_GROUPS = 4
 FREQ_EMB_WEIGHT = 0.2
 
 
-def _gelu(x):
-    return F.gelu(x)  # exact erf form, as the JAX module asks for
+class GroupNormAct(nn.GroupNorm):
+    """``nn.GroupNorm`` and the activation after it, ``act`` "gelu" (the
+    exact erf form, as the JAX module asks for) or "glu" (over the channel
+    halves), in one call of ``ops/group_norm.py:group_norm``; with
+    ``residual`` and ``scale``, ``residual + scale * glu``. Its parameters
+    and their names are ``nn.GroupNorm``'s."""
+
+    def __init__(self, num_groups: int, num_channels: int, act: str):
+        super().__init__(num_groups, num_channels)
+        self.act = act
+
+    def forward(self, x, residual=None, scale=None):
+        return group_norm(x, self.num_groups, self.weight, self.bias, self.eps, self.act,
+                          residual, scale)
+
+    def extra_repr(self) -> str:
+        return f"{super().extra_repr()}, act={self.act}"
 
 
-def _norm(norm: bool, channels: int) -> nn.Module:
-    return nn.GroupNorm(NORM_GROUPS, channels) if norm else nn.Identity()
+def _norm(norm: bool, channels: int, act: str | None) -> nn.Module:
+    """GroupNorm(4) and ``act``, or either alone where the layer lacks it."""
+    if norm and act:
+        return GroupNormAct(NORM_GROUPS, channels, act)
+    if norm:  # the last decoder, normed only where norm_starts is 0
+        return nn.GroupNorm(NORM_GROUPS, channels)
+    return {None: nn.Identity, "gelu": nn.GELU, "glu": lambda: nn.GLU(1)}[act]()
 
 
 def _pad1d_reflect(x, left: int, right: int):
@@ -183,7 +211,8 @@ class LocalState(nn.Module):
 
 class DConv(nn.Module):
     """Residual branch of dilated convs; x: (B, C, T). Each depth is one
-    ``nn.Sequential`` so the indices match torchaudio's state dict."""
+    ``nn.Sequential`` so the indices match torchaudio's state dict; its
+    second norm takes the GLU, the LayerScale and the residual add."""
 
     def __init__(self, channels: int, attn: bool = False, lstm: bool = False):
         super().__init__()
@@ -194,24 +223,31 @@ class DConv(nn.Module):
             mods = [
                 nn.Conv1d(channels, hidden, 3, dilation=dilation,
                           padding=dilation),
-                nn.GroupNorm(1, hidden),
-                nn.GELU(),
+                GroupNormAct(1, hidden, "gelu"),
+                nn.Identity(),  # the GELU's slot
             ]
             if lstm:
                 mods.append(BLSTM(hidden))
             if attn:
                 mods.append(LocalState(hidden))
+            # forward unpacks this layout by position: the body, the second
+            # norm, the GLU's slot and the LayerScale, whose scale the norm
+            # takes (LayerScale.forward is not called)
             mods += [
                 nn.Conv1d(hidden, 2 * channels, 1),
-                nn.GroupNorm(1, 2 * channels),
-                nn.GLU(1),
+                GroupNormAct(1, 2 * channels, "glu"),
+                nn.Identity(),  # the GLU's slot
                 LayerScale(channels, 1e-4),
             ]
             self.layers.append(nn.Sequential(*mods))
 
     def forward(self, x):
         for layer in self.layers:
-            x = x + layer(x)
+            *body, norm, _, layer_scale = layer
+            h = x
+            for module in body:
+                h = module(h)
+            x = norm(h, residual=x, scale=layer_scale.scale)
         return x
 
 
@@ -236,9 +272,9 @@ class HEncLayer(nn.Module):
         if empty:
             return
         klass = nn.Conv2d if freq else nn.Conv1d
-        self.norm1 = _norm(norm, chout)
+        self.norm1 = _norm(norm, chout, "gelu")
         self.rewrite = klass(chout, 2 * chout, 1 + 2 * context, 1, context)
-        self.norm2 = _norm(norm, 2 * chout)
+        self.norm2 = _norm(norm, 2 * chout, "glu")
         self.dconv = DConv(chout, lstm=dconv_lstm, attn=dconv_attn)
 
     def forward(self, x, inject=None):
@@ -256,15 +292,16 @@ class HEncLayer(nn.Module):
             if inject.dim() == 3 and y.dim() == 4:
                 inject = inject[:, :, None]
             y = y + inject
-        y = _gelu(self.norm1(y))
+        y = self.norm1(y)
         if self.freq:
-            # DConv over time with the frequency axis folded into the batch
+            # DConv over time with the frequency axis folded into the batch;
+            # contiguous for the norms' kernel (at B = 1 the reshape is a view)
             B, C, Fr, T = y.shape
-            h = y.permute(0, 2, 1, 3).reshape(B * Fr, C, T)
+            h = y.permute(0, 2, 1, 3).reshape(B * Fr, C, T).contiguous()
             y = self.dconv(h).view(B, Fr, C, T).permute(0, 2, 1, 3)
         else:
             y = self.dconv(y)
-        return F.glu(self.norm2(self.rewrite(y)), dim=1)
+        return self.norm2(self.rewrite(y))
 
 
 class HDecLayer(nn.Module):
@@ -277,7 +314,6 @@ class HDecLayer(nn.Module):
                  pad: bool = True):
         super().__init__()
         self.pad = kernel_size // 4 if pad else 0
-        self.last = last
         self.freq = freq
         self.chin = chin
         self.empty = empty
@@ -286,11 +322,11 @@ class HDecLayer(nn.Module):
                                               (stride, 1))
         else:
             self.conv_tr = nn.ConvTranspose1d(chin, chout, kernel_size, stride)
-        self.norm2 = _norm(norm, chout)
+        self.norm2 = _norm(norm, chout, None if last else "gelu")
         if not empty:
             klass = nn.Conv2d if freq else nn.Conv1d
             self.rewrite = klass(chin, 2 * chin, 1 + 2 * context, 1, context)
-            self.norm1 = _norm(norm, 2 * chin)
+            self.norm1 = _norm(norm, 2 * chin, "glu")
 
     def forward(self, x, skip, length: int):
         if self.freq and x.dim() == 3:
@@ -298,17 +334,15 @@ class HDecLayer(nn.Module):
             x = x.view(B, self.chin, -1, T)
         if not self.empty:
             x = x + skip
-            y = F.glu(self.norm1(self.rewrite(x)), dim=1)
+            y = self.norm1(self.rewrite(x))
         else:
             y = x
-        z = self.norm2(self.conv_tr(y))
+        z = self.norm2(self.conv_tr(y))  # with the GELU, before the crop
         if self.freq:
             if self.pad:
                 z = z[..., self.pad : -self.pad, :]
         else:
             z = z[..., self.pad : self.pad + length]
-        if not self.last:
-            z = _gelu(z)
         return z, y
 
 

@@ -32,6 +32,11 @@ Spans, outermost first:
     ``removal_loss`` in ``ModelWrapper.loss_and_output``.
 ``lstm``
     ``models/lstm.py:LSTM.forward``.
+``groupnorm``
+    ``ops/group_norm.py:group_norm``: a GroupNorm of HDemucs with the
+    activation it takes (and a DConv's LayerScale and residual add), the
+    fused kernel on the card, torch's composition on the CPU; its backward
+    pass runs outside it.
 ``train.step``
     ``RemovalTask.train_step``, the four spans below inside it, so that
     the host work between them (``wrapper.train()``, the contexts around
@@ -58,7 +63,8 @@ Counters, plain process-wide ints bumped on the host and never synced:
 ``ChainInference.regroup_unselected``
     rows among those that no label selected: ``bucket - n``, or ``B - n``.
 ``envelope.launches``, ``envelope_serial.launches`` (``ops/envelope.py``),
-``phaser.launches``, ``phaser_serial.launches`` (``ops/phaser.py``)
+``phaser.launches``, ``phaser_serial.launches`` (``ops/phaser.py``),
+``group_norm.launches`` (``ops/group_norm.py``)
     calls of the hand-written kernels.
 """
 

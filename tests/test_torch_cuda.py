@@ -636,3 +636,180 @@ def test_phaser_wrapper_raises_instead_of_falling_back(cuda, monkeypatch):
     for fn in wrappers:
         with pytest.raises(RuntimeError, match="nvcc"):
             fn(x, a, fb, mix)
+
+
+# ---------------------------------------------------------------- HDemucs's GroupNorm
+
+# the kernel in bf16 against the plain composition computed in fp32 from the
+# same bf16 inputs: one rounding to bf16 (2**-9 of the value) and fp32 sums
+# taken in another order; 1e-3 absolute where the value is near 0
+GN_RTOL, GN_ATOL = 2**-8, 1e-3
+GN_ACTS = ["gelu", "glu", "glu+residual"]
+
+
+def _gn_case(shape, groups, act, dtype, seed=0):
+    """x, weight, bias and the residual and LayerScale (or None) on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C = shape[1]
+
+    def randn(*s):
+        return torch.randn(*s, generator=g, device="cuda").to(dtype)
+
+    x = (0.3 + randn(*shape))
+    w, b = 1.0 + 0.5 * randn(C), 0.1 * randn(C)
+    if act != "glu+residual":
+        return x, groups, w, b, act.split("+")[0], None, None
+    return x, groups, w, b, "glu", randn(shape[0], C // 2, *shape[2:]), 0.3 * randn(C // 2)
+
+
+def _gn_fp32_plain(x, groups, w, b, act, res, scale):
+    from remfx_tpu_torch.ops.group_norm import group_norm_plain
+
+    f = [None if t is None else t.float() for t in (x, w, b, res, scale)]
+    return group_norm_plain(f[0], groups, f[1], f[2], 1e-5, act, f[3], f[4])
+
+
+@pytest.mark.parametrize("act", GN_ACTS)
+@pytest.mark.parametrize("shape", [(24, 96, 65536), (12288, 96, 256)])
+def test_group_norm_kernel_at_the_chains_shapes(cuda, shape, act):
+    """The chain's largest time-branch norm and a frequency-branch one of
+    HDemucs (24 rows, bf16): the kernel against the fp32 composition, two
+    calls bit for bit, one launch a call."""
+    from remfx_tpu_torch.ops.group_norm import group_norm
+
+    case = _gn_case(shape, 1, act, torch.bfloat16)
+    before = group_norm.launches
+    with torch.no_grad():
+        got = group_norm(*case[:4], 1e-5, *case[4:])
+        again = group_norm(*case[:4], 1e-5, *case[4:])
+    torch.cuda.synchronize()
+    assert group_norm.launches == before + 2
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), _gn_fp32_plain(*case), rtol=GN_RTOL, atol=GN_ATOL)
+
+
+# (40, 8, 1003) and (24, 768, 258): no multiple of the pack, element by
+# element; (24, 768, 1, 256): 4-d, in four groups; (3, 8, 37): 12 groups
+# of rows, each one chunk
+@pytest.mark.parametrize("act", GN_ACTS)
+@pytest.mark.parametrize("shape,groups", [((40, 8, 1003), 4), ((24, 768, 258), 4),
+                                          ((24, 768, 1, 256), 4), ((3, 8, 37), 4),
+                                          ((4, 192, 16384), 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_kernel_matches_plain(cuda, shape, groups, act, dtype):
+    from remfx_tpu_torch.ops.group_norm import group_norm
+
+    if act == "glu+residual" and len(shape) == 4:
+        shape = shape[:2] + shape[3:]  # the DConv's residual is 3-d
+    case = _gn_case(shape, groups, act, dtype, seed=1)
+    with torch.no_grad():
+        got = group_norm(*case[:4], 1e-5, *case[4:])
+    want = _gn_fp32_plain(*case)
+    if dtype == torch.float32:  # fp32 sums in another order than torch's
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=GN_RTOL, atol=GN_ATOL)
+
+
+def test_group_norm_wrapper_raises_instead_of_falling_back(cuda):
+    from remfx_tpu_torch.ops.group_norm import group_norm
+
+    x, groups, w, b, *_ = _gn_case((2, 8, 64), 1, "gelu", torch.float32)
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            group_norm(x.half(), groups, w.half(), b.half())
+        with pytest.raises(ValueError, match="contiguous"):
+            group_norm(x.transpose(1, 2).contiguous().transpose(1, 2), groups, w, b)
+        with pytest.raises(TypeError):
+            group_norm(x, groups, w.cpu(), b)
+
+
+def _gn_grads(fn, case, grad):
+    """The output of ``fn`` (group_norm or its plain version) on fresh leaves
+    of ``case`` that require grad, and their gradients for ``grad``."""
+    x, groups, w, b, act, res, scale = case
+    leaves = [None if t is None else t.detach().clone().requires_grad_()
+              for t in (x, w, b, res, scale)]
+    with torch.enable_grad():
+        out = fn(leaves[0], groups, leaves[1], leaves[2], 1e-5, act, *leaves[3:])
+    got = torch.autograd.grad(out, [t for t in leaves if t is not None], grad)
+    return [out.detach(), *got]
+
+
+@pytest.mark.parametrize("act", GN_ACTS)
+@pytest.mark.parametrize("shape,groups", [((24, 96, 4096), 1), ((12288 // 8, 96, 256), 1),
+                                          ((24, 768, 258), 4), ((8, 384, 1, 1028), 4)])
+def test_group_norm_kernel_gradients_match_plain(cuda, shape, groups, act):
+    """Under autograd the kernel launches (with its statistics) and its
+    backward pass gives the gradients of torch's composition: in fp32 within
+    1e-4 of each gradient's peak; in bf16 no further from the fp32
+    gradients than torch's own bf16 composition, give or take a bf16
+    rounding of the peak."""
+    from remfx_tpu_torch.ops.group_norm import group_norm, group_norm_plain
+
+    if act == "glu+residual" and len(shape) == 4:
+        shape = shape[:2] + shape[3:]
+    case = _gn_case(shape, groups, act, torch.float32, seed=2)
+    out_shape = (shape[0], shape[1] // 2 if act != "gelu" else shape[1], *shape[2:])
+    grad = torch.randn(out_shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                       device="cuda")
+    before = group_norm.launches
+    got = _gn_grads(group_norm, case, grad)
+    assert group_norm.launches == before + 1
+    want = _gn_grads(group_norm_plain, case, grad)
+    for a, e in zip(got, want):
+        assert ((a - e).abs().max() / e.abs().max()).item() <= 1e-4
+    half = [t.to(torch.bfloat16) if torch.is_tensor(t) else t for t in case]
+    got16 = _gn_grads(group_norm, half, grad.to(torch.bfloat16))
+    torch16 = _gn_grads(group_norm_plain, half, grad.to(torch.bfloat16))
+    for a, t, e in zip(got16, torch16, want):
+        peak = e.abs().max()
+        err, torch_err = ((a.float() - e).abs().max() / peak).item(), \
+            ((t.float() - e).abs().max() / peak).item()
+        assert err <= 2 * torch_err + 2**-8, (err, torch_err)
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_hdemucs_on_the_card_runs_the_kernel_for_every_norm(cuda, monkeypatch, rows):
+    """An HDemucs forward launches the kernel for every norm, in no-grad
+    mode and under autograd alike; the two outputs are equal, and output and
+    gradients agree with torch's composition forced in its place within
+    1e-5 and 1e-4 of their peaks (TF32 off: a TF32 convolution would round
+    the two paths' last-digit differences to its 10-bit mantissa)."""
+    from remfx_tpu_torch.models import demucs
+    from remfx_tpu_torch.ops.group_norm import group_norm, group_norm_plain
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    torch.manual_seed(0)
+    cfg = dict(sources=("mixture",), audio_channels=1, channels=8, nfft=64, depth=3,
+               norm_starts=1, dconv_lstm=2, dconv_attn=1)
+    model = HDemucs(**cfg).cuda()
+    x = 0.1 * torch.randn(rows, 1, 4096, device="cuda")
+    norms = sum(1 for m in model.modules() if type(m).__name__ == "GroupNormAct")
+    before = group_norm.launches
+    with torch.no_grad():
+        fused = model(x)
+    assert group_norm.launches == before + norms
+    ramp = torch.linspace(-1.0, 1.0, x.shape[-1], device="cuda")
+
+    def forward_and_grads():
+        model.zero_grad()
+        with torch.enable_grad():
+            y = model(x)
+            (y * ramp).square().sum().backward()
+        return [y.detach()] + [p.grad.clone() for p in model.parameters()]
+
+    traced = forward_and_grads()
+    assert group_norm.launches == before + 2 * norms
+    assert torch.equal(fused, traced[0])
+    monkeypatch.setattr(demucs, "group_norm", group_norm_plain)
+    plain = forward_and_grads()
+    assert group_norm.launches == before + 2 * norms
+    assert ((traced[0] - plain[0]).abs().max() / plain[0].abs().max()).item() <= 1e-5
+    # a leaf whose gradient is nought by construction (the attention's key
+    # bias, which the softmax cancels) holds rounding noise on both paths:
+    # each leaf against its peak, or 1e-6 of the largest leaf's where higher
+    top = max(e.abs().max().item() for e in plain[1:])
+    for a, e in zip(traced[1:], plain[1:]):
+        peak = max(e.abs().max().item(), 1e-6 * top)
+        assert (a - e).abs().max().item() / peak <= 1e-4
