@@ -12,12 +12,14 @@ kernel_size=16, n_filters=64, stride=8)``):
   example);
 * chunking: ``chunk_size`` frames at a hop of half a chunk, the frames
   padded by a whole chunk on both sides; ``n_repeats`` x [intra-chunk
-  layer, inter-chunk layer]; fold back with the same padding, divided by
-  the overlap ``chunk / hop``;
+  layer, inter-chunk layer] (the spans ``dptnet.intra`` and
+  ``dptnet.inter``, each with its layer's reshapes); fold back with the
+  same padding, divided by the overlap ``chunk / hop``;
 * each ``ImprovedTransformerLayer``: ``nn.MultiheadAttention`` (sequence
-  first, dropout 0) + residual + gLN, then a BiLSTM (``dim_ff`` a
-  direction) -> ReLU -> Linear + residual + gLN. The LSTM runs over the
-  sequence axis of the ``(S, B, C)`` tensor, as the JAX package's does;
+  first, dropout 0; the span ``dptnet.mha``) + residual + gLN, then a
+  BiLSTM (``dim_ff`` a direction) -> ReLU -> Linear + residual + gLN.
+  The LSTM runs over the sequence axis of the ``(S, B, C)`` tensor, as
+  the JAX package's does;
 * head: PReLU + 1x1 Conv2d, fold, tanh gate x sigmoid gate (1x1 Conv1d
   each), ReLU mask on the encoder's output, and the free-filterbank
   decoder, a transposed Conv1d with its own filters, cut or padded to the
@@ -40,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from remfx_tpu_torch.models.lstm import LSTM
+from remfx_tpu_torch.utils.spans import span
 
 
 class GlobLN(nn.Module):
@@ -70,7 +73,8 @@ class ImprovedTransformerLayer(nn.Module):
         self.norm_ff = GlobLN(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.mha(x, x, x, need_weights=False)[0]
+        with span("dptnet.mha"):
+            h = self.mha(x, x, x, need_weights=False)[0]
         x = self.norm_mha((x + h).permute(1, 2, 0)).permute(2, 0, 1)
         ff = self.linear(torch.relu(self.recurrent(x)))
         return self.norm_ff((x + ff).permute(1, 2, 0)).permute(2, 0, 1)
@@ -150,11 +154,13 @@ class DPTNet(nn.Module):
         B, C, chunk, Kc = seg.shape
         for intra, inter in m.layers:
             # intra-chunk: the sequence is the position within a chunk
-            s = intra(seg.permute(2, 0, 3, 1).reshape(chunk, B * Kc, C))
-            seg = s.reshape(chunk, B, Kc, C).permute(1, 3, 0, 2)
+            with span("dptnet.intra"):
+                s = intra(seg.permute(2, 0, 3, 1).reshape(chunk, B * Kc, C))
+                seg = s.reshape(chunk, B, Kc, C).permute(1, 3, 0, 2)
             # inter-chunk: the sequence is the chunk index
-            s = inter(seg.permute(3, 0, 2, 1).reshape(Kc, B * chunk, C))
-            seg = s.reshape(Kc, B, chunk, C).permute(1, 3, 2, 0)
+            with span("dptnet.inter"):
+                s = inter(seg.permute(3, 0, 2, 1).reshape(Kc, B * chunk, C))
+                seg = s.reshape(Kc, B, chunk, C).permute(1, 3, 2, 0)
         folded = _fold(m.first_out(seg), n_frames, hop)  # (B, n_src * C, frames)
         folded = folded.reshape(B * self.n_src, self.in_chan, n_frames)
         mask = torch.relu(m.net_out(folded) * m.net_gate(folded))

@@ -30,6 +30,14 @@ Spans, outermost first:
     ``model.tcn``, ``model.umx``, ``model.dptnet``).
 ``loss``
     ``removal_loss`` in ``ModelWrapper.loss_and_output``.
+``dptnet.intra``, ``dptnet.inter``
+    ``models/dptnet.py:DPTNet.forward``: an intra-chunk (sequences of a
+    chunk's positions) or inter-chunk (sequences of a position's chunks)
+    ``ImprovedTransformerLayer`` with the reshapes around it, inside
+    ``model.dptnet``.
+``dptnet.mha``
+    the multi-head attention of an ``ImprovedTransformerLayer``, inside
+    ``dptnet.intra`` or ``dptnet.inter``.
 ``lstm``
     ``models/lstm.py:LSTM.forward``.
 ``groupnorm``

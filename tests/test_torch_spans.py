@@ -19,7 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from remfx_tpu_torch import ALL_EFFECTS, EFFECT_CLASS_NAMES
 from remfx_tpu_torch.chain.inference import DEFAULT_ORDER, ChainInference
-from remfx_tpu_torch.models import make_cnn14, make_dcunet
+from remfx_tpu_torch.models import make_cnn14, make_dcunet, make_model
 from remfx_tpu_torch.models.demucs import HDemucs
 from remfx_tpu_torch.models.wrappers import ModelWrapper
 from remfx_tpu_torch.train.tasks import RemovalTask
@@ -237,3 +237,36 @@ def test_span_names_are_listed_and_clear_of_the_readers_prefixes():
         assert not name.startswith(READER_PREFIXES), (where, name)
         assert f"``{name}" in spans.__doc__, (where, name)
 
+
+def _dptnet_task():
+    torch.manual_seed(13)
+    wrapper = make_model("dptnet", device="cpu", in_chan=16, out_chan=16, n_filters=16,
+                         chunk_size=10, n_repeats=1)
+    return RemovalTask(wrapper, max_steps=100)
+
+
+def test_dptnet_train_step_records_its_layers_and_changes_nothing():
+    """``dptnet.intra`` and ``dptnet.inter`` each hold a ``dptnet.mha`` and an
+    ``lstm``, all inside ``model.dptnet``; the traced step's outputs and
+    parameters are bit for bit an untraced step's."""
+    batch = _batch()
+
+    def step(task):
+        state = task.init_state()
+        _, metrics = task.train_step(state, batch)
+        return ([metrics[k] for k in sorted(metrics)]
+                + [p.detach().clone() for p in task.wrapper.parameters()])
+
+    traced, events = _traced(lambda: step(_dptnet_task()))
+    (model,) = _named(events, lambda n: n == "model.dptnet")
+    layers = _named(events, lambda n: n in ("dptnet.intra", "dptnet.inter"))
+    assert [e[0] for e in layers] == ["dptnet.intra", "dptnet.inter"]
+    mhas = _named(events, lambda n: n == "dptnet.mha")
+    lstms = _named(events, lambda n: n == "lstm")
+    assert len(mhas) == len(lstms) == 2
+    for layer, mha, lstm in zip(layers, mhas, lstms):
+        assert _inside(layer, model) and _inside(mha, layer) and _inside(lstm, layer)
+        assert mha[2] <= lstm[1]
+    plain = step(_dptnet_task())
+    assert len(plain) == len(traced)
+    assert all(torch.equal(a, b) for a, b in zip(plain, traced))
