@@ -155,6 +155,15 @@ Then the mixing channel and the evaluation surface:
   fp64; its launches in one forward of the chain's HDemucs. Every phase
   line counts the kernel's launches in that phase
   (group_norm_launches), and the last kernels line gives them by path.
+- and the DCUNet's eval epilogue (csrc/dcunet_epilogue.cu; no TPU kernel:
+  the JAX package leaves the norm, leaky ReLU and skip concatenation to
+  XLA) at the chain's largest Large-DCUNet-20 shape (24 x 257 x 1025
+  pixels of 90 values packed in 96, bf16), an encoder's and a decoder's
+  with its skip: against the
+  plain version in fp32 from the same inputs, the skip and two calls bit
+  for bit, timed by events beside the plain version in bf16 and the bytes
+  bound; its launches in one inference of the chain's Large-DCUNet-20
+  (19), which launches no cuDNN layout transpose or padding and no cat.
 - channel: RandomAudioEffectsChannel on the demo clips as stereo, 8 x 2 x
   262144, with every stage forced on (the phaser's path: one phaser and
   three envelope launches), then at its default probabilities; every row
@@ -246,12 +255,15 @@ from remfx_tpu_torch.fx import sox_reverb
 from remfx_tpu_torch.losses import si_sdr
 from remfx_tpu_torch.models import (make_cnn14, make_dcunet, make_demucs, make_model,
                                     make_tcn)
+from remfx_tpu_torch.models.dcunet import DCUNet
 from remfx_tpu_torch.models.embedding_classifiers import (make_embedding_classifier,
                                                        make_panns_embed_fn)
 from remfx_tpu_torch.models.wrappers import ModelWrapper
 from remfx_tpu_torch.ops import _build
 from remfx_tpu_torch.ops.envelope import (envelope, envelope_flags,
                                           envelope_plain, envelope_serial)
+from remfx_tpu_torch.ops.dcunet_epilogue import (dcunet_epilogue, dcunet_epilogue_plain,
+                                                  packed_width)
 from remfx_tpu_torch.ops.group_norm import group_norm, group_norm_plain
 from remfx_tpu_torch.ops.loudness import integrated_loudness, loudness_normalize
 from remfx_tpu_torch.ops.phaser import CHUNK as PHASER_CHUNK
@@ -313,16 +325,21 @@ class Phases:
         self.start = time.perf_counter()
         self.last = self.start
         self.group_norm = {}  # phase -> the GroupNorm kernel's launches in it
+        self.dcunet_epilogue = {}  # phase -> the DCUNet epilogue's launches in it
         self._gn = group_norm.launches
+        self._epi = dcunet_epilogue.launches
 
     def done(self, phase: str, /, **fields):
         now = time.perf_counter()
         launched = group_norm.launches - self._gn
         self._gn = group_norm.launches
         self.group_norm[phase] = self.group_norm.get(phase, 0) + launched
+        epi = dcunet_epilogue.launches - self._epi
+        self._epi = dcunet_epilogue.launches
+        self.dcunet_epilogue[phase] = self.dcunet_epilogue.get(phase, 0) + epi
         line = {"phase": phase, "seconds": round(now - self.last, 3),
                 "total_seconds": round(now - self.start, 3),
-                "group_norm_launches": launched, **fields}
+                "group_norm_launches": launched, "dcunet_epilogue_launches": epi, **fields}
         print(json.dumps(line), flush=True)
         self.last = now
 
@@ -392,6 +409,8 @@ def load_kernel_modules(dev):
     w = torch.ones(4, device=dev)
     with torch.no_grad():
         group_norm(x.view(1, 4, 1024), 1, w, w, act="gelu")
+        dcunet_epilogue(x.view(1, 2, 32, 64).contiguous(memory_format=torch.channels_last),
+                        torch.ones(6, 1, device=dev))
     torch.cuda.synchronize()
 
 
@@ -535,6 +554,79 @@ def group_norm_main_path(seed: int) -> dict:
     check(any("/g4/" in k for k in cases) and any("/g1/" in k for k in cases),
           f"the main path has GroupNorm(1) and GroupNorm(4): {sorted(cases)}")
     return cases
+
+
+# a Large-DCUNet-20 stage of the chain: 24 rows at 262144 samples, 257 x 1025
+# pixels (the "pad" mode's frames), 45 complex channels packed as 90
+EPI_SHAPE = (24, 257, 1025)
+EPI_C = 45
+DCUNET_LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw", "CatArrayBatchedCopy", "nhwcAddPadding")
+
+
+def dcunet_epilogue_row(seed: int) -> dict:
+    """The DCUNet's eval epilogue kernel at the chain's largest shape (bf16):
+    an encoder's (the conv output, 24 x 257 x 1025 pixels of 90 values and
+    6 zeros) and the last decoder's with its skip (the same, plus a skip of
+    as many channels), each against the plain version in fp32 from the same
+    inputs, the skip bit for bit, two calls bit for bit; "ms" by events
+    over back-to-back calls, "plain_ms" the plain version in bf16 on the
+    card; the bytes bound reads the conv output and the skip and writes the
+    output once. Then one inference of a Large-DCUNet-20 at the chain's
+    shape (bf16, 24 x 262144): the kernel's launches, and that no cuDNN
+    layout transpose or channel padding and no cat ran."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, H, W = EPI_SHAPE
+    coef = torch.randn(6, EPI_C, generator=g, device=dev)
+    width = packed_width(2 * EPI_C)  # 90 values and 6 zeros a pixel
+
+    def packed():
+        x = torch.randn(B, H, W, width, generator=g, device=dev).to(torch.bfloat16)
+        x[..., 2 * EPI_C:] = 0
+        return x.permute(0, 3, 1, 2)
+
+    x = packed()
+    cases = {}
+    for where, skip in (("encoder", None), ("decoder_skip", packed())):
+        s2 = 0 if skip is None else 2 * EPI_C
+        args = (x, coef, skip, s2)
+        with torch.no_grad():
+            got = dcunet_epilogue(*args)
+            again = dcunet_epilogue(*args)
+            want = dcunet_epilogue_plain(x.float(), coef,
+                                         None if skip is None else skip.float(), s2)
+            diff = (got.float() - want).abs()
+            err = (diff - GN_RTOL * want.abs()).max().item()
+        check(torch.equal(got, again), f"dcunet_epilogue repeats bit for bit ({where})")
+        check(err <= 1e-6, f"dcunet_epilogue within one bf16 rounding of fp32 ({where}): {err}")
+        if skip is not None:
+            check(torch.equal(got[:, 2 * EPI_C:4 * EPI_C], skip[:, :s2]),
+                  "the skip copied bit for bit")
+        n_bytes = (x.numel() + got.numel() + (0 if skip is None else skip.numel())) * 2
+        cases[where] = {"shape": list(got.shape), "max_abs_err": diff.max().item(),
+                        "ms": time_kernel(lambda: dcunet_epilogue(*args)),
+                        "plain_ms": time_kernel(lambda: dcunet_epilogue_plain(*args)),
+                        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+        del got, again, want, diff
+    torch.manual_seed(seed)
+    model = make_dcunet(device=dev).to(torch.bfloat16)
+    xin = (0.1 * torch.randn(B, 1, T, generator=g, device=dev)).to(torch.bfloat16)
+    model.sample(xin)
+    before = dcunet_epilogue.launches
+    kernels = device_kernels(lambda: model.sample(xin))
+    launches = dcunet_epilogue.launches - before
+    layout = sorted({k for k in kernels if any(n in k for n in DCUNET_LAYOUT_KERNELS)})
+    check(launches == 2 * len(model.module.stages) - 1 and not layout,
+          f"a Large-DCUNet-20 inference runs the epilogue a normed block and no layout "
+          f"transpose, padding or cat ({launches} launches; {layout})")
+    return {"name": "dcunet_epilogue", "route": "cuda",
+            "source": "remfx_tpu_torch/csrc/dcunet_epilogue.cu", "replaces": None,
+            "cases": cases,
+            "ms": sum(c["ms"] for c in cases.values()),
+            "plain_ms": sum(c["plain_ms"] for c in cases.values()),
+            "bound_ms": sum(c["bound_ms"] for c in cases.values()),
+            "bound_by": "bytes",
+            "launches_per_dcunet_forward": launches}
 
 
 def group_norm_row(seed: int) -> dict:
@@ -2689,7 +2781,7 @@ def main(argv=None) -> int:
     if args.only == "kernels":
         ph.done("kernels", kernels=[kernels_phase(clips, gen), phaser_row(
             clips, torch.Generator().manual_seed(args.seed + 1), args.seed + 1),
-            group_norm_row(args.seed)])
+            group_norm_row(args.seed), dcunet_epilogue_row(args.seed)])
     elif args.only == "bf16":
         ph.done("bf16", **bf16_run(args.seed, clips))
     elif args.only:
@@ -2702,12 +2794,14 @@ def main(argv=None) -> int:
     row = kernels_phase(clips, gen)
     prow = phaser_row(clips, torch.Generator().manual_seed(args.seed + 1), args.seed + 1)
     gnrow = group_norm_row(args.seed)
-    ph.done("kernels", kernels=[row, prow, gnrow])
+    eprow = dcunet_epilogue_row(args.seed)
+    ph.done("kernels", kernels=[row, prow, gnrow, eprow])
     phaser.launches = 0  # no path before the channel's renders a phaser
 
     # ---- the main path: counts at 0 just before, read just after ----
     envelope.launches = 0
     gn_before = group_norm.launches
+    epi_before = dcunet_epilogue.launches
     params = compressor.sample_params(gen, B, COMP_RANGES, device=dev)
     wet = compressor.render_batch(clips[:, None, :], params, SR)
     torch.cuda.synchronize()
@@ -2725,6 +2819,11 @@ def main(argv=None) -> int:
     torch.manual_seed(args.seed)
     cls, slots = build_slots(dev)
     chain = ChainInference(slots, SR, classifier=cls)
+    dcunet_forwards = []  # the rows of each forward of the main path's DCUNets
+    hooks = [w.module.register_forward_pre_hook(
+                 lambda m, args: dcunet_forwards.append(args[0].shape[0]))
+             for w in slots.values() if isinstance(w.module, DCUNet)]
+    check(len(hooks) == 3, "three Large-DCUNet-20 slots")
     ph.done("build_slots", slots={k: type(w.module).__name__
                                   for k, w in slots.items()},
             parameters={k: sum(p.numel() for p in w.parameters())
@@ -2767,8 +2866,15 @@ def main(argv=None) -> int:
     ph.done("test_step", **metrics,
             peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
     launches = {"envelope": main_launches + envelope.launches,
-                "group_norm": group_norm.launches - gn_before}
+                "group_norm": group_norm.launches - gn_before,
+                "dcunet_epilogue": dcunet_epilogue.launches - epi_before}
     check(launches["group_norm"] > 0, "the main path's HDemucs launched the GroupNorm kernel")
+    for h in hooks:
+        h.remove()
+    epi_forwards = sum(1 for rows in dcunet_forwards if rows)
+    check(epi_forwards > 0 and launches["dcunet_epilogue"] == 19 * epi_forwards,
+          f"the main path's DCUNets took the packed path: {launches['dcunet_epilogue']} "
+          f"epilogue launches in {epi_forwards} Large-DCUNet-20 forwards")
     # ---- end of the main path ----
 
     ph.done("cpu_vs_card", **cpu_vs_card(cls, slots, wet, dry))
@@ -2860,7 +2966,10 @@ def main(argv=None) -> int:
     gnrow["launches_by_phase"] = {k: v for k, v in ph.group_norm.items() if v}
     check(ph.group_norm["train"] > 0, "HDemucs's training under autograd launched the "
           "GroupNorm kernel")
-    print(json.dumps({"kernels": [row, prow, gnrow]}), flush=True)
+    eprow["launches_by_path"] = {"render_detect_remove": launches["dcunet_epilogue"],
+                                 "dcunet_forwards": epi_forwards}
+    eprow["launches_by_phase"] = {k: v for k, v in ph.dcunet_epilogue.items() if v}
+    print(json.dumps({"kernels": [row, prow, gnrow, eprow]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -74,6 +74,10 @@ Counters, plain process-wide ints bumped on the host and never synced:
 ``phaser.launches``, ``phaser_serial.launches`` (``ops/phaser.py``),
 ``group_norm.launches`` (``ops/group_norm.py``)
     calls of the hand-written kernels.
+``dcunet_epilogue.launches`` (``ops/dcunet_epilogue.py``)
+    launches of the DCUNet's eval epilogue kernel on the card: one a
+    normed block of an inference, 19 a Large-DCUNet-20 forward; none in
+    train mode, and none on the CPU, where its plain version runs.
 """
 
 from __future__ import annotations

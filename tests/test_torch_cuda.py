@@ -362,8 +362,10 @@ def _train_step(name, net, T, dev, seed=0):
     seeded batch: (loss, parameters and buffers after the step)."""
     from remfx_tpu_torch.models import make_model
     from remfx_tpu_torch.train.tasks import RemovalTask
+    from remfx_tpu_torch.utils.device import resolve_device
     torch.manual_seed(seed)
-    w = make_model(name, sample_rate=SR, device="cpu", **net).to(dev)
+    # built on the CPU, moved as the port's entry points move it: TF32 off
+    w = make_model(name, sample_rate=SR, device="cpu", **net).to(resolve_device(dev))
     x = _clips(2, 1, T, seed=seed + 1)
     y = 0.5 * torch.tanh(2 * x)
     task = RemovalTask(w, max_steps=100)
@@ -492,17 +494,35 @@ def test_trained_weights_read_onto_the_card(cuda, name):
 
 
 @pytest.mark.parametrize("name", ["tcn_distortion_aug", "dcunet_reverb_aug_r4"])
-def test_trained_slot_on_the_card_matches_the_cpu(cuda, name):
+def test_trained_slot_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
     """A trained removal slot on 65536 samples of a demo clip: card
-    against CPU within 1e-3 of the peak, TF32 off."""
+    against CPU within 1e-3 of the peak, TF32 off; the DCUNet through the
+    packed path of inference on both: the kernel on the card, its plain
+    version on the CPU."""
+    from remfx_tpu_torch.models import dcunet as dcunet_module
+    from remfx_tpu_torch.ops.dcunet_epilogue import dcunet_epilogue
     from remfx_tpu_torch.train.checkpoint import load_trained_wrapper
 
+    calls = []  # the device of each epilogue call of the masker
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].device.type)
+        return dcunet_epilogue(*args, **kwargs)
+
+    monkeypatch.setattr(dcunet_module, "dcunet_epilogue", counted)
     x, _ = read_wav(DEMO)
     x = torch.from_numpy(np.ascontiguousarray(x[None, :, :65536], np.float32))
     _, on_card = load_trained_wrapper(CKPTS / name, device=cuda)
     _, on_cpu = load_trained_wrapper(CKPTS / name, device="cpu")
+    before = dcunet_epilogue.launches
     got = on_card.sample(x.to(cuda)).cpu()
+    launched = dcunet_epilogue.launches - before
     want = on_cpu.sample(x)
+    if name.startswith("dcunet"):  # the packed path, on the card and on the CPU
+        blocks = 2 * len(on_card.module.stages) - 1
+        assert launched == blocks
+        assert calls == ["cuda"] * blocks + ["cpu"] * blocks
+        assert dcunet_epilogue.launches == before + blocks
     assert got.shape == want.shape
     assert ((got - want).abs().max() / want.abs().max()).item() <= CPU_TOL
 
@@ -813,3 +833,172 @@ def test_hdemucs_on_the_card_runs_the_kernel_for_every_norm(cuda, monkeypatch, r
     for a, e in zip(traced[1:], plain[1:]):
         peak = max(e.abs().max().item(), 1e-6 * top)
         assert (a - e).abs().max().item() / peak <= 1e-4
+
+
+# ---------------------------------------------------------------- the DCUNet's epilogue
+
+def _epi_case(kind, C, S, shape, dtype, padded=True, seed=0):
+    """x (B, xw, H, W) channels-last, the norm's (6, C) coefficients and the
+    skip (B, sw, H, W) or None, on the card: widths padded to multiples of 8
+    with random values past the 2C and 2S read (``padded``), or 2C and 2S."""
+    from remfx_tpu_torch.models.dcunet import ComplexBatchNorm, OnReImBatchNorm
+    from remfx_tpu_torch.ops.dcunet_epilogue import packed_width
+
+    g = torch.Generator().manual_seed(seed)
+    norm = ComplexBatchNorm(C) if kind == "CbN" else OnReImBatchNorm(C)
+    with torch.no_grad():
+        for t in norm.parameters():
+            t.add_(0.2 * torch.randn(t.shape, generator=g))
+        for name, t in norm.named_buffers():
+            if "mean" in name:
+                t.uniform_(-0.3, 0.3, generator=g)
+            elif "covar" in name:
+                t.copy_(torch.tensor([1.3, 0.4, 0.8]).repeat(C, 1))
+            elif "var" in name:
+                t.uniform_(0.5, 2.0, generator=g)
+    coef = norm.eval().cuda().eval_affine()
+    B, H, W = shape
+    width = packed_width if padded else (lambda n: n)
+    gd = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, H, W, width(2 * C), generator=gd, device="cuda").to(dtype)
+    skip = None
+    if S:
+        skip = torch.randn(B, H, W, width(2 * S), generator=gd, device="cuda").to(dtype)
+        skip = skip.permute(0, 3, 1, 2)
+    return x.permute(0, 3, 1, 2), coef, skip, 2 * S
+
+
+def _epi_check(got, x, coef, skip, skip_channels):
+    """The kernel against the plain version computed in fp32 from the same
+    inputs: fp32 within 1e-6 of the peak, bf16 within one rounding; the
+    skip's channels and the zeros after them bit for bit."""
+    from remfx_tpu_torch.ops.dcunet_epilogue import dcunet_epilogue_plain, packed_width
+
+    want = dcunet_epilogue_plain(x.float(), coef, None if skip is None else skip.float(),
+                                 skip_channels)
+    C2 = coef.shape[1] * 2
+    width = C2 + skip_channels
+    assert got.dtype == x.dtype and got.is_contiguous(memory_format=torch.channels_last)
+    assert got.shape[1] == packed_width(width) and not got[:, width:].any()
+    if skip is not None:
+        assert torch.equal(got[:, C2:width], skip[:, :skip_channels])
+    got, want = got[:, :C2], want[:, :C2]
+    if x.dtype == torch.float32:
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-6
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=2**-8, atol=1e-6)
+
+
+# (C, S, (B, H, W)): the encoders' 45, 90 and 128 complex channels, a
+# decoder's 90 + 90 and 45 + 45, and 13 frames (no multiple of 8)
+EPI_SHAPES = [(45, 0, (3, 17, 13)), (90, 0, (2, 9, 40)), (128, 0, (2, 5, 13)),
+              (90, 90, (2, 9, 13)), (45, 45, (3, 17, 40)), (3, 2, (2, 5, 7))]
+
+
+@pytest.mark.parametrize("C,S,shape", EPI_SHAPES)
+@pytest.mark.parametrize("kind", ["bN", "CbN"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "tight"])
+def test_dcunet_epilogue_kernel_matches_plain(cuda, C, S, shape, kind, dtype, padded):
+    from remfx_tpu_torch.ops.dcunet_epilogue import dcunet_epilogue
+
+    x, coef, skip, s2 = _epi_case(kind, C, S, shape, dtype, padded)
+    before = dcunet_epilogue.launches
+    with torch.no_grad():
+        got = dcunet_epilogue(x, coef, skip, s2)
+    torch.cuda.synchronize()
+    assert dcunet_epilogue.launches == before + 1
+    _epi_check(got, x, coef, skip, s2)
+
+
+@pytest.mark.parametrize("S", [0, 45])
+def test_dcunet_epilogue_unaligned_tensors_take_the_scalar_path(cuda, S):
+    """A batch slice whose start is not on 16 bytes (17 x 13 pixels of 90
+    bf16 values a row) runs element by element, with the same result."""
+    from remfx_tpu_torch.ops.dcunet_epilogue import dcunet_epilogue
+
+    x, coef, skip, s2 = _epi_case("bN", 45, S, (3, 17, 13), torch.bfloat16, padded=False)
+    x = x[1:]
+    skip = None if skip is None else skip[1:]
+    assert x.data_ptr() % 16
+    with torch.no_grad():
+        got = dcunet_epilogue(x, coef, skip, s2)
+    _epi_check(got, x, coef, skip, s2)
+
+
+@pytest.mark.parametrize("S", [0, 45])
+def test_dcunet_epilogue_kernel_at_the_chains_shape(cuda, S):
+    """24 rows of a Large-DCUNet-20 stage at 262144 samples, bf16: 45
+    complex channels over 257 x 1025, packed in 96, an encoder and the last
+    decoder with its skip; two calls bit for bit."""
+    from remfx_tpu_torch.ops.dcunet_epilogue import dcunet_epilogue
+
+    x, coef, skip, s2 = _epi_case("bN", 45, S, (24, 257, 1025), torch.bfloat16)
+    with torch.no_grad():
+        got = dcunet_epilogue(x, coef, skip, s2)
+        again = dcunet_epilogue(x, coef, skip, s2)
+    assert torch.equal(got, again)
+    _epi_check(got, x, coef, skip, s2)
+
+
+def test_dcunet_epilogue_wrapper_raises_instead_of_falling_back(cuda):
+    from remfx_tpu_torch.ops.dcunet_epilogue import dcunet_epilogue
+
+    x, coef, skip, s2 = _epi_case("bN", 5, 3, (2, 4, 8), torch.float32)
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            dcunet_epilogue(x.half(), coef, skip.half(), s2)
+        with pytest.raises(ValueError, match="channels-last"):
+            dcunet_epilogue(x.contiguous(), coef, skip, s2)
+        with pytest.raises(ValueError, match="channels-last"):
+            dcunet_epilogue(x, coef, skip.contiguous(), s2)
+        with pytest.raises(TypeError):
+            dcunet_epilogue(x, coef, skip.cpu(), s2)
+        with pytest.raises(TypeError):
+            dcunet_epilogue(x, coef.cpu(), skip, s2)
+        with pytest.raises(TypeError):
+            dcunet_epilogue(x, coef.double(), skip, s2)
+        with pytest.raises(ValueError):
+            dcunet_epilogue(x, coef, skip, skip.shape[1] + 2)
+    with pytest.raises(ValueError, match="backward"):
+        dcunet_epilogue(x.detach().requires_grad_(), coef, skip, s2)
+
+
+@pytest.mark.parametrize("norm_type", ["bN", "CbN"])
+def test_large_dcunet_on_the_card_takes_the_packed_path(cuda, norm_type):
+    """A Large-DCUNet-20 inference on the card: 19 epilogue launches (10
+    encoders, 9 decoders) and the CPU's output within 1e-3 of the peak
+    (fp32, TF32 off)."""
+    from remfx_tpu_torch.models import make_dcunet
+    from remfx_tpu_torch.ops.dcunet_epilogue import dcunet_epilogue
+
+    torch.manual_seed(0)
+    model = make_dcunet(device="cpu", norm_type=norm_type, identity_init=True)
+    x = 0.3 * torch.randn(2, 1, 8192, generator=torch.Generator().manual_seed(2))
+    want = model.sample(x)
+    model.to(cuda)
+    before = dcunet_epilogue.launches
+    got = model.sample(x.to(cuda)).cpu()
+    assert dcunet_epilogue.launches == before + 19
+    assert ((got - want).abs().max() / want.abs().max()).item() <= CPU_TOL
+
+
+def test_large_dcunet_at_the_chains_shape_transposes_nothing(cuda):
+    """A Large-DCUNet-20 inference as the chain runs it (bf16, 24 x 262144):
+    no cuDNN layout transpose and no cat inside the model. (At small shapes
+    cuDNN's heuristics pick NCHW kernels for some convolutions, and
+    transpose around them.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from remfx_tpu_torch.models import make_dcunet
+
+    torch.manual_seed(0)
+    model = make_dcunet(device=cuda).to(torch.bfloat16)
+    x = (0.1 * torch.randn(24, 1, 262144, device=cuda)).to(torch.bfloat16)
+    model.sample(x)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.sample(x)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    assert not [n for n in names if "nchwToNhwc" in n or "nhwcToNchw" in n or "CatArray" in n
+                or "AddPadding" in n]

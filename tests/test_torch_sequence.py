@@ -28,7 +28,9 @@ devices.
   TCN shortens so far that the last rank's span is empty; 1e-6 absolute,
   the labels equal.
 * A DCUNet halo forced to 0 fails the comparison on random data (so the
-  tolerance catches a wrong reach); the contract's error paths.
+  tolerance catches a wrong reach); the DCUNet's windows run the packed
+  path of inference and equal the two-tensor path's whole file; the
+  contract's error paths.
 """
 
 import jax
@@ -44,8 +46,10 @@ from remfx_tpu.parallel import shard_time as jax_shard_time
 from remfx_tpu_torch import ALL_EFFECTS
 from remfx_tpu_torch.compat.from_jax import dcunet_state_dict, tcn_state_dict
 from remfx_tpu_torch.models import make_model
+from remfx_tpu_torch.models import dcunet as dcunet_module
 from remfx_tpu_torch.models.dcunet import DCUNet
 from remfx_tpu_torch.models.wrappers import ModelWrapper
+from remfx_tpu_torch.ops.dcunet_epilogue import dcunet_epilogue
 from remfx_tpu_torch.parallel import TimeShard, launch
 from remfx_tpu_torch.parallel.sequence import (PLANS, GatherPlan, HaloPlan, sample_windows,
                                                span_sample, time_plan)
@@ -241,6 +245,25 @@ def test_dcunet_windows_equal_the_whole_file_and_a_zero_halo_does_not(ranks):
     assert (got - want).abs().max().item() <= HALO_TOL
     blind = sample_windows(w, HaloPlan(0, 0, plan.align), x, ranks)
     assert (blind - want).abs().max().item() > 1e3 * HALO_TOL
+
+
+@pytest.mark.parametrize("ranks", RANKS)
+def test_dcunet_windows_take_the_packed_path(ranks, monkeypatch):
+    """The plan's windows of a Mini-DCUNet-6 in eval run the packed path of
+    inference (7 epilogues a window) and equal the whole file's forward on
+    the two-tensor path (eval under autograd) within the halo tolerance."""
+    w, x = _dcunet_pair()
+    want = w(x).detach()
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return dcunet_epilogue(*args, **kwargs)
+
+    monkeypatch.setattr(dcunet_module, "dcunet_epilogue", counted)
+    got = sample_windows(w, time_plan(w), x, ranks)
+    assert len(calls) == 7 * ranks
+    assert (got - want).abs().max().item() <= HALO_TOL
 
 
 def test_time_plan_table():
