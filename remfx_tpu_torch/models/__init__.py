@@ -125,7 +125,6 @@ def make_dcunet(
     fix_length_mode="pad",
     num_bins=1025,
     norm_type="bN",
-    gauss_conv=False,
     identity_init=False,
     device=None,
     **_ignored,
@@ -135,7 +134,6 @@ def make_dcunet(
         stft_kernel_size=stft_kernel_size,
         fix_length_mode=fix_length_mode,
         norm_type=norm_type,
-        gauss_conv=gauss_conv,
         identity_init=identity_init,
     )
     return ModelWrapper(module, name="dcunet").to(resolve_device(device)).eval()

@@ -53,25 +53,36 @@ class BatchNorm1d(nn.BatchNorm1d):
         return mixed_batch_norm(self, x)
 
 
+def batch_statistics(xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The train-mode (mean, biased variance) of ``xf`` (B, C, H, W) per
+    channel, as flax takes them, differentiable; the global batch's under a
+    split batch."""
+    axes = (0, 2, 3)
+    rows = current_split()
+    if rows is None:
+        mean, ex2 = xf.mean(axes), (xf * xf).mean(axes)
+    else:
+        mean, ex2 = batch_means([xf, xf * xf], axes, rows)
+    return mean, torch.clamp(ex2 - mean * mean, min=0.0)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``momentum`` is torch's (flax's 0.9 is 0.1 here); ``(B, C, H, W)``."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return mixed_batch_norm(self, x)
-        xf = x.float()
-        axes = (0, 2, 3)
-        rows = current_split()
-        if rows is None:
-            mean, ex2 = xf.mean(axes), (xf * xf).mean(axes)
-        else:
-            mean, ex2 = batch_means([xf, xf * xf], axes, rows)
-        var = torch.clamp(ex2 - mean * mean, min=0.0)
+    def track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """The running statistics moved toward the batch's ``batch_statistics``."""
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
             self.running_var.copy_(keep * self.running_var + self.momentum * var)
             self.num_batches_tracked += 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return mixed_batch_norm(self, x)
+        xf = x.float()
+        mean, var = batch_statistics(xf)
+        self.track(mean, var)
 
         def bc(v):
             return v[None, :, None, None]

@@ -30,29 +30,27 @@ deconv...``, ``masker.output_layer...``, ``masker.mask_bias``), so
 with it. Train mode follows ``nn.Module.train()``; the JAX package's
 ``train`` argument is the module's ``training`` flag here.
 
-Two paths through the masker, one math:
-
-* Inference (eval mode, stacked convs, and autograd recording nothing:
-  grad mode off, or neither the input nor a parameter of the masker
-  requiring grad): one
-  tensor a block, ``(B, packed_width(2C), H, W)`` in
-  ``torch.channels_last`` with the C real channels first, the C imaginary
-  ones after and zeros up to a multiple of 8 (so that cuDNN's NHWC kernels
-  pad nothing), packed from the STFT at one edge and unpacked from the
-  output layer at the other. Each
-  ``ComplexConv`` runs its stacked ``2Cin -> 2Cout`` conv on it directly,
-  with the block weight built once and kept until a parameter changes
-  (another tensor, or an in-place write such as ``load_state_dict``'s);
-  a decoder's weight takes the input channels in the order ``[h, skip]``
-  of the packed axis. The norm, leaky ReLU and a decoder's skip
-  concatenation are one call of ``ops/dcunet_epilogue.py`` (the kernel on
-  the card), its coefficients derived once from the norm's running
-  statistics and weights. So cuDNN runs NHWC as the tensors lie, and no
-  ``cat`` or separate norm pass remains.
-* Everything else (train mode, batch statistics; ``gauss_conv``, whose
-  three convolutions do not stack; an eval forward that autograd records,
-  which the kernel cannot differentiate): (re, im) as two NCHW tensors,
-  with the weight built and the skips concatenated every call.
+The masker carries one tensor a block, in every mode: ``(B,
+packed_width(2C), H, W)`` with the C real channels first and the C
+imaginary ones after, packed from the STFT at one edge and unpacked from
+the output layer at the other. Its layout is the one thing the mode
+decides, at the packing: in eval ``torch.channels_last`` with zeros up to
+a multiple of 8 channels (so that cuDNN's NHWC kernels pad nothing, and as
+the epilogue kernel takes it), in train mode contiguous with no zeros
+(cuDNN's fp32 NHWC convolutions are slower than its NCHW ones); every
+layer after it follows the tensor it is handed
+(``ops/dcunet_epilogue.py:packed_layout``). Each ``ComplexConv`` runs its
+stacked ``2Cin -> 2Cout`` conv on it directly; a decoder's weight takes
+the input channels in the order ``[h, skip]`` of the packed axis. Where
+autograd records nothing the block weight is built once and kept until a
+parameter changes (another tensor, or an in-place write such as
+``load_state_dict``'s); where it records, it is built in the graph every
+call. The norm, leaky ReLU and a decoder's skip concatenation are one call
+of ``ops/dcunet_epilogue.py``, with the norm's (6, C) coefficients: from
+the running statistics in eval (kept likewise), from the batch's in train
+mode. That op alone picks the kernel or its plain, differentiable version.
+So in inference cuDNN runs NHWC as the tensors lie, and no ``cat`` or
+separate norm pass remains.
 """
 
 from __future__ import annotations
@@ -64,8 +62,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from remfx_tpu_torch.models.batchnorm import BatchNorm2d
-from remfx_tpu_torch.ops.dcunet_epilogue import dcunet_epilogue, packed_width
+from remfx_tpu_torch.models.batchnorm import BatchNorm2d, batch_statistics
+from remfx_tpu_torch.ops.dcunet_epilogue import (CL, dcunet_epilogue, packed_layout,
+                                                  packed_width, recorded)
 from remfx_tpu_torch.parallel.mesh import batch_means, current_split
 
 # (in_chan, out_chan, kernel (F, T), stride (F, T)) per encoder stage;
@@ -165,14 +164,14 @@ def _istft_stacked(spec: torch.Tensor, kernel_size: int, length: int, weight):
     return F.pad(y, (0, length - out_len))
 
 
-def _kept(owner: nn.Module, sources, build):
+def _kept(owner: nn.Module, sources, build, *tags):
     """``build()`` (under no_grad), kept on ``owner`` and built again only
     when one of the tensors ``sources`` is another tensor (address, dtype
-    or device) or was written in place since (its version counter). The
-    entry holds the sources it was built from, so that no new tensor can
-    take one's address while it stands. A write through ``.data`` is not
-    seen."""
-    key = [(t.data_ptr(), t._version, t.dtype, t.device) for t in sources]
+    or device) or was written in place since (its version counter), or the
+    ``tags`` differ. The entry holds the sources it was built from, so that
+    no new tensor can take one's address while it stands. A write through
+    ``.data`` is not seen."""
+    key = [(t.data_ptr(), t._version, t.dtype, t.device) for t in sources] + list(tags)
     entry = owner._eval_cache
     if entry is None or entry[0] != key:
         with torch.no_grad():
@@ -181,33 +180,41 @@ def _kept(owner: nn.Module, sources, build):
     return entry[2]
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in fp32, or as it is where its type is wider (fp64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _weight(owner: nn.Module, sources, build, *tags):
+    """``build()`` in autograd's graph where autograd records an operation
+    on one of ``sources``; else kept on ``owner`` (``_kept``)."""
+    if recorded(*sources):
+        return build()
+    return _kept(owner, sources, build, *tags)
+
+
 class ComplexConv(nn.Module):
     """asteroid ComplexConv2d / ComplexConvTranspose2d (a ``re_module`` /
     ``im_module`` pair): ``y = (conv_r(xr) - conv_i(xi), conv_r(xi) +
-    conv_i(xr))``.
+    conv_i(xr))``, as one ``2Cin -> 2Cout`` real conv with the block kernel
+    ``[[wr, wi], [-wi, wr]]``. The transposed form uses the weights as
+    stored (torch tap order) with padding ``(k - 1) // 2``, which is the JAX
+    package's flipped phase-split transpose cropped by ``(k - 1) // 2`` on
+    each side.
 
-    Two forms of the same math, as in the JAX package: stacked (default),
-    one ``2Cin -> 2Cout`` real conv with the block kernel ``[[wr, wi],
-    [-wi, wr]]``; or ``gauss``, Gauss's three-multiplication form. The
-    transposed form uses the weights as stored (torch tap order) with
-    padding ``(k - 1) // 2``, which is the JAX package's flipped phase-split
-    transpose cropped by ``(k - 1) // 2`` on each side.
-
-    ``forward`` takes (re, im); ``packed`` the stacked form on the masker's
-    packed tensor, whose last ``skip`` of the ``in_ch`` complex input
-    channels come from a skip: ``[h re, h im, skip re, skip im]``, then
-    zeros up to ``packed_width``; its output likewise."""
+    ``forward`` takes the masker's packed tensor, whose last ``skip`` of the
+    ``in_ch`` complex input channels come from a skip: ``[h re, h im, skip
+    re, skip im]``, then any zeros (``packed_width``); its output likewise,
+    in the input's layout."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel, stride=(1, 1),
-                 transpose: bool = False, use_bias: bool = False,
-                 gauss: bool = False, skip: int = 0):
+                 transpose: bool = False, use_bias: bool = False, skip: int = 0):
         super().__init__()
         self.kernel = tuple(kernel)
         self.stride = tuple(stride)
         self.padding = tuple((k - 1) // 2 for k in self.kernel)
         self.transpose = transpose
         self.use_bias = use_bias
-        self.gauss = gauss
         self.skip = skip
         cls = nn.ConvTranspose2d if transpose else nn.Conv2d
         self.re_module = cls(in_ch, out_ch, self.kernel, self.stride,
@@ -216,65 +223,37 @@ class ComplexConv(nn.Module):
                              self.padding, bias=use_bias)
         self._eval_cache = None
 
-    def _conv(self, v, w, b=None):
-        if self.transpose:
-            return F.conv_transpose2d(v, w, b, stride=self.stride,
-                                      padding=self.padding)
-        return F.conv2d(v, w, b, stride=self.stride, padding=self.padding)
-
-    def _block_weight(self):
-        """The stacked kernel on inputs [xr, xi]. Conv2d weights are (out,
-        in, kh, kw), ConvTranspose2d's (in, out, kh, kw): the block kernel
-        stacks on the other axes."""
-        wr, wi = self.re_module.weight, self.im_module.weight
+    def _packed_weight(self, width: int, layout):
+        """(weight, bias or None) of the stacked conv on a packed input of
+        ``width`` channels in ``layout``: the block kernel ``[[wr, -wi], [wi,
+        wr]]`` with its input channels in the packed order [h re, h im, skip
+        re, skip im], and zeros for the input channels past them and the
+        output channels up to ``packed_width``. Conv2d weights are (out, in,
+        kh, kw), ConvTranspose2d's (in, out, kh, kw): the block kernel stacks
+        on the other axes."""
         o, i = (1, 0) if self.transpose else (0, 1)
-        return torch.cat([torch.cat([wr, -wi], dim=i),
-                          torch.cat([wi, wr], dim=i)], dim=o)
-
-    def forward(self, xr, xi):
-        wr, wi = self.re_module.weight, self.im_module.weight
-        if self.gauss:
-            t1 = self._conv(xr, wr)
-            t2 = self._conv(xi, wi)
-            t3 = self._conv(xr + xi, wr + wi)
-            yr, yi = t1 - t2, t3 - t1 - t2
-        else:
-            y = self._conv(torch.cat([xr, xi], dim=1), self._block_weight())
-            yr, yi = y.chunk(2, dim=1)
-        if self.use_bias:
-            br, bi = self.re_module.bias, self.im_module.bias
-            yr = yr + (br - bi)[:, None, None]
-            yi = yi + (br + bi)[:, None, None]
-        return yr, yi
-
-    def _packed_weight(self):
-        """(weight, bias or None) of the stacked conv on the packed input,
-        channels-last: the block kernel's input channels permuted from
-        [h re, skip re, h im, skip im] to the packed [h re, h im, skip re,
-        skip im], and zeros for the padding channels of input and output."""
-        w = self._block_weight()
-        axis = 0 if self.transpose else 1
-        cin, s = self.re_module.in_channels, self.skip
-        if s:
-            h = cin - s
-            order = [torch.arange(h), cin + torch.arange(h), h + torch.arange(s),
-                     cin + h + torch.arange(s)]
-            w = w.index_select(axis, torch.cat(order).to(w.device))
-        full = w.new_zeros([packed_width(n) if d < 2 else n for d, n in enumerate(w.shape)])
-        full[:w.shape[0], :w.shape[1]] = w
+        h = self.re_module.in_channels - self.skip
+        (rh, rs), (ih, is_) = (m.weight.split([h, self.skip], i)
+                               for m in (self.re_module, self.im_module))
+        w = torch.cat([torch.cat([rh, -ih, rs, -is_], i), torch.cat([ih, rh, is_, rs], i)], o)
+        grow = {i: width - w.shape[i], o: packed_width(w.shape[o], layout) - w.shape[o]}
+        w = F.pad(w, (0, 0, 0, 0, 0, grow[1], 0, grow[0]))
         bias = None
         if self.use_bias:
             br, bi = self.re_module.bias, self.im_module.bias
             bias = torch.cat([br - bi, br + bi])
-            bias = F.pad(bias, (0, packed_width(len(bias)) - len(bias)))
-        return full.contiguous(memory_format=torch.channels_last), bias
+            bias = F.pad(bias, (0, packed_width(len(bias), layout) - len(bias)))
+        return w.contiguous(memory_format=layout), bias
 
-    def packed(self, x):
+    def forward(self, x):
         """x (B, packed_width(2 in_ch), H, W) -> (B, packed_width(2 out_ch),
-        H', W'), with the kept weight."""
-        params = list(self.parameters())
-        w, b = _kept(self, params, self._packed_weight)
-        return self._conv(x, w, b)
+        H', W'), in ``x``'s layout."""
+        layout = packed_layout(x)
+        w, b = _weight(self, list(self.parameters()),
+                       lambda: self._packed_weight(x.shape[1], layout), x.shape[1], layout)
+        if self.transpose:
+            return F.conv_transpose2d(x, w, b, stride=self.stride, padding=self.padding)
+        return F.conv2d(x, w, b, stride=self.stride, padding=self.padding)
 
 
 class OnReImBatchNorm(nn.Module):
@@ -288,27 +267,33 @@ class OnReImBatchNorm(nn.Module):
         self.im_module = BatchNorm2d(features, eps=1e-5, momentum=0.1)
         self._eval_cache = None
 
-    def forward(self, xr, xi):
-        return self.re_module(xr), self.im_module(xi)
+    def coefficients(self, x: torch.Tensor) -> torch.Tensor:
+        """The norm of the packed ``x``'s first 2C channels as
+        ``ops/dcunet_epilogue.py``'s diagonal (4, C) fp32 coefficients: ``a
+        = w / sqrt(var + eps)`` of re and of im, then the biases ``b - mean
+        * a``. Train mode takes the batch's statistics (``models/
+        batchnorm.py``, of every channel at once: no slice of ``x`` for
+        autograd to copy back) and moves the running ones toward them; eval
+        the running statistics."""
+        parts = (self.re_module, self.im_module)
+        if self.training:
+            C = self.re_module.num_features
+            mean, var = batch_statistics(_wide(x))
+            stats = [(mean[k * C:(k + 1) * C], var[k * C:(k + 1) * C]) for k in (0, 1)]
+            for bn, (m, v) in zip(parts, stats):
+                bn.track(m, v)
+            return self._affine(stats)
+        running = [(bn.running_mean, bn.running_var) for bn in parts]
+        return _weight(self, list(self.parameters()) + [t for ts in running for t in ts],
+                       lambda: self._affine(running))
 
-    def eval_affine(self) -> torch.Tensor:
-        """The eval norm as ``ops/dcunet_epilogue.py``'s (6, C) fp32
-        coefficients, kept until a parameter or statistic changes: the
-        diagonal ``w / sqrt(var + eps)`` and the bias ``b - mean * a``."""
-        def build():
-            def part(bn):
-                a = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-                return a, bn.bias.float() - bn.running_mean.float() * a
-
-            (ar, br), (ai, bi) = part(self.re_module), part(self.im_module)
-            zero = torch.zeros_like(ar)
-            return torch.stack([ar, zero, zero, ai, br, bi])
-
-        sources = list(self.parameters()) + [self.re_module.running_mean,
-                                             self.re_module.running_var,
-                                             self.im_module.running_mean,
-                                             self.im_module.running_var]
-        return _kept(self, sources, build)
+    def _affine(self, stats):
+        coef = []
+        for bn, (mean, var) in zip((self.re_module, self.im_module), stats):
+            a = _wide(bn.weight) * torch.rsqrt(_wide(var) + bn.eps)
+            coef.append((a, _wide(bn.bias) - _wide(mean) * a))
+        (ar, br), (ai, bi) = coef
+        return torch.stack([ar, ai, br, bi])
 
 
 class ComplexBatchNorm(nn.Module):
@@ -333,70 +318,57 @@ class ComplexBatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
         self._eval_cache = None
 
-    def _whitening(self, vrr, vri, vii):
-        """(rrr, rri, rii): the inverse square root of each channel's 2x2
-        covariance [[vrr, vri], [vri, vii]] (eps added)."""
+    def coefficients(self, x: torch.Tensor) -> torch.Tensor:
+        """The norm of the packed ``x``'s first 2C channels as
+        ``ops/dcunet_epilogue.py``'s (6, C) fp32 coefficients: the weight
+        times the whitening, and the bias less that times the mean; of the
+        batch in train mode (updating the running statistics), of the
+        running statistics in eval."""
+        if self.training:
+            C = self.weight.shape[0]
+            xr, xi, _ = _wide(x).split([C, C, x.shape[1] - 2 * C], 1)
+            return self._affine(*self._batch_statistics(xr, xi))
+        return _weight(self, [self.weight, self.bias, self.running_mean, self.running_covar],
+                       lambda: self._affine(_wide(self.running_mean),
+                                            _wide(self.running_covar)))
+
+    def _batch_statistics(self, xr, xi):
+        """(mean (C, 2), covariance (C, 3)) of the batch, differentiable;
+        the running statistics updated with them."""
+        axes = (0, 2, 3)
+        rows = current_split()
+        if rows is None:
+            def means(*ts):
+                return [t.mean(axes) for t in ts]
+        else:  # a rank's part of the batch: the global batch's means
+            def means(*ts):
+                return batch_means(ts, axes, rows)
+        mr, mi = means(xr, xi)
+        cr, ci = xr - mr[:, None, None], xi - mi[:, None, None]
+        vrr, vii, vri = means(cr * cr, ci * ci, cr * ci)
+        mean, covar = torch.stack([mr, mi], dim=1), torch.stack([vrr, vri, vii], dim=1)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_covar.mul_(1 - m).add_(m * covar)
+            self.num_batches_tracked += 1
+        return mean, covar
+
+    def _affine(self, m, v):
+        """m (C, 2), v (C, 3) fp32 -> (6, C): the inverse square root of each
+        channel's 2x2 covariance [[vrr, vri], [vri, vii]] (eps added) times
+        the weight, and the bias less that times the mean."""
+        vrr, vri, vii = v[:, 0] + self.eps, v[:, 1], v[:, 2] + self.eps
         s = torch.sqrt(vrr * vii - vri * vri)
         t = torch.sqrt(vrr + vii + 2 * s)
         inv_st = 1.0 / (s * t)
-        return (vii + s) * inv_st, -vri * inv_st, (vrr + s) * inv_st
-
-    def eval_affine(self) -> torch.Tensor:
-        """The eval branch as ``ops/dcunet_epilogue.py``'s (6, C) fp32
-        coefficients, kept until a parameter or statistic changes: the
-        weight times the running whitening, and the bias less that times
-        the running mean."""
-        def build():
-            m, v = self.running_mean.float(), self.running_covar.float()
-            rrr, rri, rii = self._whitening(v[:, 0] + self.eps, v[:, 1],
-                                            v[:, 2] + self.eps)
-            w, b = self.weight.float(), self.bias.float()
-            a = torch.stack([w[:, 0] * rrr + w[:, 1] * rri, w[:, 0] * rri + w[:, 1] * rii,
-                             w[:, 1] * rrr + w[:, 2] * rri, w[:, 1] * rri + w[:, 2] * rii])
-            shift = torch.stack([b[:, 0] - a[0] * m[:, 0] - a[1] * m[:, 1],
-                                 b[:, 1] - a[2] * m[:, 0] - a[3] * m[:, 1]])
-            return torch.cat([a, shift])
-
-        return _kept(self, [self.weight, self.bias, self.running_mean,
-                            self.running_covar], build)
-
-    def forward(self, xr, xi):
-        def bc(v):  # (C,) -> (1, C, 1, 1)
-            return v[None, :, None, None]
-
-        axes = (0, 2, 3)
-        if self.training:
-            rows = current_split()
-            if rows is None:
-                def means(*ts):
-                    return [t.mean(axes) for t in ts]
-            else:  # a rank's part of the batch: the global batch's means
-                def means(*ts):
-                    return batch_means(ts, axes, rows)
-            mr, mi = means(xr, xi)
-            cr, ci = xr - bc(mr), xi - bc(mi)
-            vrr, vii, vri = means(cr * cr, ci * ci, cr * ci)
-            vrr, vii = vrr + self.eps, vii + self.eps
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(
-                    m * torch.stack([mr, mi], dim=1))
-                self.running_covar.mul_(1 - m).add_(m * torch.stack(
-                    [vrr - self.eps, vri, vii - self.eps], dim=1))
-                self.num_batches_tracked += 1
-        else:
-            mr, mi = self.running_mean[:, 0], self.running_mean[:, 1]
-            vrr = self.running_covar[:, 0] + self.eps
-            vri = self.running_covar[:, 1]
-            vii = self.running_covar[:, 2] + self.eps
-            cr, ci = xr - bc(mr), xi - bc(mi)
-        rrr, rri, rii = self._whitening(vrr, vri, vii)
-        xh_r = bc(rrr) * cr + bc(rri) * ci
-        xh_i = bc(rri) * cr + bc(rii) * ci
-        w, b = self.weight, self.bias
-        yr = bc(w[:, 0]) * xh_r + bc(w[:, 1]) * xh_i + bc(b[:, 0])
-        yi = bc(w[:, 1]) * xh_r + bc(w[:, 2]) * xh_i + bc(b[:, 1])
-        return yr, yi
+        rrr, rri, rii = (vii + s) * inv_st, -vri * inv_st, (vrr + s) * inv_st
+        w, b = _wide(self.weight), _wide(self.bias)
+        a = torch.stack([w[:, 0] * rrr + w[:, 1] * rri, w[:, 0] * rri + w[:, 1] * rii,
+                         w[:, 1] * rrr + w[:, 2] * rri, w[:, 1] * rri + w[:, 2] * rii])
+        shift = torch.stack([b[:, 0] - a[0] * m[:, 0] - a[1] * m[:, 1],
+                             b[:, 1] - a[2] * m[:, 0] - a[3] * m[:, 1]])
+        return torch.cat([a, shift])
 
 
 def _norm(norm_type: str, features: int) -> nn.Module:
@@ -419,82 +391,60 @@ def _decoder_args(stages):
 
 
 class _Block(nn.Module):
-    """Complex conv -> norm -> leaky_relu(0.01) on (re, im), or on the
-    packed tensor (``packed``), with a decoder's skip after it."""
+    """Complex conv -> norm -> leaky_relu(0.01) on the packed tensor, with
+    a decoder's skip after it."""
 
-    def __init__(self, args, norm_type: str, transpose: bool, gauss: bool,
-                 skip: int = 0):
+    def __init__(self, args, norm_type: str, transpose: bool, skip: int = 0):
         super().__init__()
         cin, cout, kernel, stride = args
-        conv = ComplexConv(cin, cout, kernel, stride, transpose=transpose,
-                           gauss=gauss, skip=skip)
+        conv = ComplexConv(cin, cout, kernel, stride, transpose=transpose, skip=skip)
         # asteroid's attribute names: "conv" in encoders, "deconv" in decoders
         self.conv_name = "deconv" if transpose else "conv"
         setattr(self, self.conv_name, conv)
         self.norm = _norm(norm_type, cout)
         self.out_channels = cout
 
-    def forward(self, xr, xi):
-        xr, xi = self.norm(*getattr(self, self.conv_name)(xr, xi))
-        return F.leaky_relu(xr, 0.01), F.leaky_relu(xi, 0.01)
-
-    def packed(self, x, skip=None, skip_channels=0):
+    def forward(self, x, skip=None, skip_channels=0):
         """x packed -> the block's packed output; where a skip is given, its
         first ``skip_channels`` after the block's (the next decoder's
         input)."""
-        y = getattr(self, self.conv_name).packed(x)
-        return dcunet_epilogue(y, self.norm.eval_affine(), skip, skip_channels)
+        y = getattr(self, self.conv_name)(x)
+        return dcunet_epilogue(y, self.norm.coefficients(y), skip, skip_channels)
 
 
 class _Masker(nn.Module):
-    """asteroid's DCUMaskNet over (re, im) (B, 1, F, N) -> the raw mask;
-    ``packed`` over (B, 8, F, N), re, im and six channels of zeros."""
+    """asteroid's DCUMaskNet over the packed (B, packed_width(2), F, N), re,
+    im and any channels of zeros -> the raw mask, packed likewise."""
 
-    def __init__(self, stages, norm_type: str, gauss: bool,
-                 identity_init: bool):
+    def __init__(self, stages, norm_type: str, identity_init: bool):
         super().__init__()
-        self.gauss = gauss
-        self.encoders = nn.ModuleList(
-            [_Block(s, norm_type, False, gauss) for s in stages])
+        self.encoders = nn.ModuleList([_Block(s, norm_type, False) for s in stages])
         dec_args, (cin, cout, kernel, stride) = _decoder_args(stages)
 
         def skip(j):  # complex channels of the skip in decoder j's input
             return stages[len(stages) - 1 - j][1] if j else 0
 
         self.decoders = nn.ModuleList(
-            [_Block(a, norm_type, True, gauss, skip(j)) for j, a in enumerate(dec_args)])
+            [_Block(a, norm_type, True, skip(j)) for j, a in enumerate(dec_args)])
         self.output_layer = ComplexConv(cin, cout, kernel, stride, transpose=True,
-                                        gauss=gauss, skip=skip(len(dec_args)))
+                                        skip=skip(len(dec_args)))
         if identity_init:
             self.mask_bias = nn.Parameter(torch.tensor([1.5, 0.0]))
 
-    def forward(self, hr, hi):
+    def forward(self, h):
         skips = []
         for enc in self.encoders:
-            hr, hi = enc(hr, hi)
-            skips.append((hr, hi))
-        for k, dec in enumerate(self.decoders):
-            hr, hi = dec(hr, hi)
-            sr, si = skips[len(self.decoders) - 1 - k]
-            hr, hi = torch.cat([hr, sr], dim=1), torch.cat([hi, si], dim=1)
-        return self.output_layer(hr, hi)
-
-    def packed(self, h):
-        """``forward`` on one packed channels-last tensor, in eval mode."""
-        skips = []
-        for enc in self.encoders:
-            h = enc.packed(h)
+            h = enc(h)
             skips.append((h, 2 * enc.out_channels))
         for k, dec in enumerate(self.decoders):
-            h = dec.packed(h, *skips[len(self.decoders) - 1 - k])
-        return self.output_layer.packed(h)
+            h = dec(h, *skips[len(self.decoders) - 1 - k])
+        return self.output_layer(h)
 
 
 class DCUNet(nn.Module):
     def __init__(self, architecture: str = "Large-DCUNet-20",
                  stft_kernel_size: int = 512, fix_length_mode: str = "pad",
-                 norm_type: str = "bN", gauss_conv: bool = False,
-                 identity_init: bool = False):
+                 norm_type: str = "bN", identity_init: bool = False):
         super().__init__()
         self.architecture = architecture
         if fix_length_mode != "pad":
@@ -505,7 +455,7 @@ class DCUNet(nn.Module):
         self.stages = DCUNET_ARCHITECTURES[architecture]
         self.freq_prod = int(np.prod([s[3][0] for s in self.stages]))
         self.time_prod = int(np.prod([s[3][1] for s in self.stages]))
-        self.masker = _Masker(self.stages, norm_type, gauss_conv, identity_init)
+        self.masker = _Masker(self.stages, norm_type, identity_init)
         self.register_buffer(
             "filters", torch.from_numpy(_stft_filters(stft_kernel_size).copy()),
             persistent=False)
@@ -529,22 +479,16 @@ class DCUNet(nn.Module):
                 f"{self.architecture} (needs (F-1) % {self.freq_prod} == 0); "
                 "use a matching stft_kernel_size")
         pad_t = (-(N_in - 1)) % self.time_prod
-        # inference takes the packed path (module docstring)
-        recorded = torch.is_grad_enabled() and (
-            spec.requires_grad or any(p.requires_grad for p in self.masker.parameters()))
-        packed = not (self.training or self.masker.gauss or recorded)
-        if packed:
-            h = torch.empty((x.shape[0], packed_width(2), F_full, N_in + pad_t),
-                            dtype=spec.dtype, device=spec.device,
-                            memory_format=torch.channels_last).zero_()
-            h[:, :2, :, :N_in] = spec.unflatten(1, (2, F_full))
-            mr, mi = self.masker.packed(h)[:, :2].unbind(1)
-        else:
-            mr, mi = self.masker(F.pad(re, (0, pad_t))[:, None],
-                                 F.pad(im, (0, pad_t))[:, None])
-            mr, mi = mr[:, 0], mi[:, 0]
-        mr = mr[:, :F_full, :N_in]
-        mi = mi[:, :F_full, :N_in]
+        # the layout of the masker's packed tensor and of the ISTFT's
+        # spectrum, the one thing train mode changes: channels-last with zeros
+        # up to a multiple of 8 channels in eval (for cuDNN's NHWC kernels and
+        # the epilogue kernel), contiguous with none in train mode, where
+        # cuDNN's fp32 NHWC convolutions are the slower
+        layout = torch.contiguous_format if self.training else CL
+        h = torch.empty((x.shape[0], packed_width(2, layout), F_full, N_in + pad_t),
+                        dtype=spec.dtype, device=spec.device, memory_format=layout).zero_()
+        h[:, :2, :, :N_in] = spec.unflatten(1, (2, F_full))
+        mr, mi = self.masker(h)[:, :2, :F_full, :N_in].unbind(1)
         if self.identity_init:
             mr = mr + self.masker.mask_bias[0]
             mi = mi + self.masker.mask_bias[1]
@@ -552,35 +496,39 @@ class DCUNet(nn.Module):
         mag = torch.sqrt(mr * mr + mi * mi + 1e-12)
         scale = torch.tanh(mag) / mag
         mr, mi = mr * scale, mi * scale
-        if packed:  # the halves written where asteroid_istft's cat would put them
-            out = self._istft_input(spec.shape[0], N_in)
-            torch.sub(mr * re, mi * im, out=out[:, :F_full])
-            torch.add(mr * im, mi * re, out=out[:, F_full:2 * F_full])
-            y = _istft_stacked(out, K, T_in, self._istft_weight())
-        else:
-            y = asteroid_istft(mr * re - mi * im, mr * im + mi * re, K, T_in, self.filters)
+        # the halves written where asteroid_istft's cat would put them
+        out = self._istft_input(spec, layout)
+        out[:, :F_full] = mr * re - mi * im
+        out[:, F_full:2 * F_full] = mr * im + mi * re
+        y = _istft_stacked(out, K, T_in, self._istft_weight(layout).to(spec.dtype))
         return y[:, None, :] if squeeze_ch else y
 
-    def _istft_input(self, rows: int, frames: int) -> torch.Tensor:
-        """The packed path's spectrum (rows, packed_width(2F), frames),
-        frames outermost (channels-last for the transposed conv), its rows
-        past the re and im ones zero."""
-        width = packed_width(self.filters.shape[0])
-        out = self.filters.new_empty((rows, frames, width))
-        out[..., self.filters.shape[0]:] = 0
+    @staticmethod
+    def _istft_input(spec: torch.Tensor, layout) -> torch.Tensor:
+        """The ISTFT's spectrum (B, packed_width(2F), N) for ``spec`` (B,
+        2F, N), in its dtype (a bf16-mixed step's filters stay fp32): in
+        ``layout`` channels-last, frames outermost with zero rows past the
+        re and im ones; contiguous, as ``spec`` lies."""
+        rows, channels, frames = spec.shape
+        if layout != CL:
+            return spec.new_empty(spec.shape)
+        out = spec.new_empty((rows, frames, packed_width(channels)))
+        out[..., channels:] = 0
         return out.transpose(1, 2)
 
-    def _istft_weight(self) -> torch.Tensor:
-        """The packed path's transposed-conv weight: the filters, zero rows
-        up to ``packed_width`` and seven zero output channels, so that
-        cuDNN's NHWC kernels pad and transpose nothing; kept."""
+    def _istft_weight(self, layout) -> torch.Tensor:
+        """The ISTFT's transposed-conv weight, kept: the filters, in
+        ``layout`` channels-last with zero rows up to ``packed_width`` and
+        seven zero output channels, so that cuDNN's NHWC kernels pad and
+        transpose nothing."""
         def build():
             f = self.filters
-            w = f.new_zeros((packed_width(f.shape[0]), 8, 1, f.shape[1]))
+            w = f.new_zeros((packed_width(f.shape[0], layout), packed_width(1, layout), 1,
+                             f.shape[1]))
             w[:f.shape[0], 0, 0] = f
-            return w.contiguous(memory_format=torch.channels_last)
+            return w.contiguous(memory_format=layout)
 
-        return _kept(self, [self.filters], build)
+        return _kept(self, [self.filters], build, layout)
 
     def output_length(self, length: int) -> int:
         return length

@@ -1,13 +1,15 @@
-"""The DCUNet's eval epilogue: a block's complex norm, leaky ReLU and skip
-concatenation on packed channels-last tensors. The CUDA kernel's wrapper
-and its plain PyTorch version.
+"""The DCUNet's block epilogue: a block's complex norm, leaky ReLU and skip
+concatenation on packed tensors. The CUDA kernel's wrapper and its plain
+PyTorch version.
 
-In eval, ``models/dcunet.py``'s masker carries one tensor a block, ``(B,
-packed_width(2C), H, W)`` in ``torch.channels_last``: the C real channels,
-the C imaginary ones, then zeros up to a multiple of 8 channels (cuDNN's
-NHWC kernels read 16 bytes of channels at a time and pad any other count
-in a pass of their own). A block's convolution writes it; this epilogue
-reads it once and applies, per complex channel c,
+``models/dcunet.py``'s masker carries one tensor a block, ``(B,
+packed_width(2C), H, W)``: the C real channels, then the C imaginary ones.
+In eval it lies in ``torch.channels_last`` with zeros up to a multiple of 8
+channels (cuDNN's NHWC kernels read 16 bytes of channels at a time and pad
+any other count in a pass of their own); in train mode it is contiguous
+with no zeros, because cuDNN's fp32 NHWC kernels are slower than its NCHW
+ones. ``packed_layout`` reads which from the tensor. A block's convolution
+writes it; this epilogue reads it once and applies, per complex channel c,
 
     yr = a[0, c] xr + a[1, c] xi + a[4, c]
     yi = a[2, c] xr + a[3, c] xi + a[5, c]
@@ -15,18 +17,23 @@ reads it once and applies, per complex channel c,
 then the leaky ReLU, in fp32, rounded once to the input's type; in a
 decoder it also copies the first ``skip_channels`` channels of the skip
 after the block's 2C, the concatenation that feeds the next transposed
-convolution; zeros fill the output up to a multiple of 8. ``coef`` ``(6,
-C)`` fp32 is the eval norm: a batch norm on re and on im is the diagonal
-case, the complex whitening norm the full 2 x 2 (the norms'
-``eval_affine`` in ``models/dcunet.py``).
+convolution; zeros fill a channels-last output up to a multiple of 8.
+``coef`` fp32 is the norm (the norms' ``coefficients`` in
+``models/dcunet.py``, from the running statistics in eval and the batch's
+in train mode): ``(6, C)``, the full 2 x 2, for the complex whitening norm;
+``(4, C)``, rows 0, 3, 4 and 5 with rows 1 and 2 zero, for a batch norm on
+re and on im, so that the plain version leaves out the off-diagonal
+products and their gradients.
 
-``dcunet_epilogue_plain`` is the same math in torch ops: the path of CPU
-tensors. Every other call launches ``csrc/dcunet_epilogue.cu`` (built by
-``ops/_build.py``) or raises: bf16 or fp32 activations, fp32
-coefficients, contiguous in channels-last, on one card. There is no
-fallback and no backward: the masker takes this path only where autograd
-records nothing. ``dcunet_epilogue.launches`` counts the kernel's
-launches on the card; the CPU path adds nothing to it.
+``dcunet_epilogue`` decides which version runs, and no caller does: the
+plain version, in torch ops, on the CPU and wherever autograd records
+(grad mode on and ``x``, ``coef`` or ``skip`` requiring grad), so that it
+carries the gradient; elsewhere ``csrc/dcunet_epilogue.cu`` (built by
+``ops/_build.py``), which takes bf16 or fp32 activations and fp32
+coefficients, contiguous in channels-last (the eval layout), on one card,
+and raises on anything else: there is no fallback and no backward.
+``dcunet_epilogue.launches`` counts the kernel's launches on the card; the
+plain version adds nothing to it.
 
 The kernel replaces no TPU kernel: the JAX package leaves the DCUNet's
 norm, activation and concatenation to XLA.
@@ -49,36 +56,58 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CL = torch.channels_last
 
 
-def packed_width(channels: int) -> int:
+def packed_width(channels: int, layout=CL) -> int:
     """Channels of a packed tensor that holds ``channels`` values a pixel:
-    the next multiple of 8."""
-    return -(-channels // 8) * 8
+    the next multiple of 8 channels-last, ``channels`` itself contiguous."""
+    return -(-channels // 8) * 8 if layout == CL else channels
+
+
+def packed_layout(x: torch.Tensor):
+    """The layout of the packed tensor ``x``: contiguous (``packed_width``
+    pads nothing), else channels-last."""
+    return torch.contiguous_format if x.is_contiguous() else CL
 
 
 def dcunet_epilogue_plain(x, coef, skip=None, skip_channels=0, slope=SLOPE):
-    """x (B, >= 2C, H, W), coef (6, C) fp32, skip (B, >= skip_channels, H,
-    W) or None -> (B, packed_width(2C + skip_channels), H, W) channels-last
-    in ``x``'s dtype: the affine of each (re, im) pair in fp32, the leaky
-    ReLU, one rounding; then the skip's first channels as they are, then
-    zeros."""
+    """x (B, >= 2C, H, W), coef (6, C) or (4, C) fp32 (or fp64), skip (B, >=
+    skip_channels, H, W) or None -> (B, packed_width(2C + skip_channels), H,
+    W) in ``x``'s dtype and packed layout: the affine of each (re, im) pair
+    in the wider of the two types, the leaky ReLU, one rounding; then the
+    skip's first channels as they are, then zeros. One ``split`` of ``x``
+    and one ``cat``, so that autograd's backward copies each once."""
     C = coef.shape[1]
-    a = coef.view(6, 1, C, 1, 1)
-    xr, xi = x[:, :C].float(), x[:, C:2 * C].float()
-    width = 2 * C + skip_channels
-    out = torch.empty((x.shape[0], packed_width(width), *x.shape[2:]), dtype=x.dtype,
-                      device=x.device, memory_format=CL)
-    out[:, :C] = F.leaky_relu(xr * a[0] + xi * a[1] + a[4], slope)
-    out[:, C:2 * C] = F.leaky_relu(xr * a[2] + xi * a[3] + a[5], slope)
+    a = dict(zip((0, 3, 4, 5) if len(coef) == 4 else range(6), coef.view(-1, 1, C, 1, 1)))
+    xr, xi, _ = x.split([C, C, x.shape[1] - 2 * C], 1)
+
+    def half(diag, off, bias, xd, xo):
+        y = torch.addcmul(a[bias], xd, a[diag])
+        if off in a:
+            y = torch.addcmul(y, xo, a[off])
+        return F.leaky_relu(y, slope).to(x.dtype)
+
+    parts = [half(0, 1, 4, xr, xi), half(3, 2, 5, xi, xr)]
     if skip_channels:
-        out[:, 2 * C:width] = skip[:, :skip_channels]
-    out[:, width:] = 0
-    return out
+        parts.append(skip[:, :skip_channels])
+    layout = packed_layout(x)
+    width = 2 * C + skip_channels
+    pad = packed_width(width, layout) - width
+    if pad:
+        parts.append(torch.empty((x.shape[0], pad, *x.shape[2:]), dtype=x.dtype,
+                                 device=x.device, memory_format=layout).zero_())
+    return torch.cat(parts, 1).contiguous(memory_format=layout)
+
+
+def recorded(*tensors) -> bool:
+    """Whether autograd records an operation on ``tensors`` (None allowed):
+    grad mode on and one of them requiring grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
 
 
 def dcunet_epilogue(x, coef, skip=None, skip_channels=0, slope=SLOPE):
-    """``dcunet_epilogue_plain``'s function: on the CPU that function, on
-    the card the kernel (no autograd)."""
-    if x.device.type == "cpu":
+    """``dcunet_epilogue_plain``'s function: that function on the CPU and
+    where autograd records, the kernel elsewhere."""
+    if x.device.type == "cpu" or recorded(x, coef, skip):
         return dcunet_epilogue_plain(x, coef, skip, skip_channels, slope)
     return _fused(x, coef, skip, skip_channels, slope)
 
@@ -101,8 +130,7 @@ def _check_fused(x, coef, skip, skip_channels):
         raise ValueError(f"no dcunet_epilogue kernel for device {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"the dcunet_epilogue kernel takes float32 or bfloat16, got {x.dtype}")
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (x, coef, skip)):
+    if recorded(x, coef, skip):
         raise ValueError("the dcunet_epilogue kernel has no backward pass")
     if x.dim() != 4:
         raise ValueError(f"x must be (B, channels, H, W), got shape {tuple(x.shape)}")
@@ -132,6 +160,10 @@ def _check_fused(x, coef, skip, skip_channels):
 def _fused(x, coef, skip, skip_channels, slope):
     """One launch of the kernel -> (B, packed_width(2C + skip_channels), H,
     W) channels-last."""
+    if coef.dim() == 2 and len(coef) == 4:  # the kernel reads the 2 x 2 in full
+        full = coef.new_zeros((6, coef.shape[1]))
+        full[0], full[3:] = coef[0], coef[1:]
+        coef = full
     _check_fused(x, coef, skip, skip_channels)
     C = coef.shape[1]
     ow = packed_width(2 * C + skip_channels)

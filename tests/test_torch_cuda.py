@@ -496,9 +496,9 @@ def test_trained_weights_read_onto_the_card(cuda, name):
 @pytest.mark.parametrize("name", ["tcn_distortion_aug", "dcunet_reverb_aug_r4"])
 def test_trained_slot_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
     """A trained removal slot on 65536 samples of a demo clip: card
-    against CPU within 1e-3 of the peak, TF32 off; the DCUNet through the
-    packed path of inference on both: the kernel on the card, its plain
-    version on the CPU."""
+    against CPU within 1e-3 of the peak, TF32 off; the DCUNet's inference
+    on both: the epilogue kernel on the card, its plain version on the
+    CPU."""
     from remfx_tpu_torch.models import dcunet as dcunet_module
     from remfx_tpu_torch.ops.dcunet_epilogue import dcunet_epilogue
     from remfx_tpu_torch.train.checkpoint import load_trained_wrapper
@@ -518,7 +518,7 @@ def test_trained_slot_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
     got = on_card.sample(x.to(cuda)).cpu()
     launched = dcunet_epilogue.launches - before
     want = on_cpu.sample(x)
-    if name.startswith("dcunet"):  # the packed path, on the card and on the CPU
+    if name.startswith("dcunet"):  # the kernel on the card, the plain version on the CPU
         blocks = 2 * len(on_card.module.stages) - 1
         assert launched == blocks
         assert calls == ["cuda"] * blocks + ["cpu"] * blocks
@@ -838,7 +838,7 @@ def test_hdemucs_on_the_card_runs_the_kernel_for_every_norm(cuda, monkeypatch, r
 # ---------------------------------------------------------------- the DCUNet's epilogue
 
 def _epi_case(kind, C, S, shape, dtype, padded=True, seed=0):
-    """x (B, xw, H, W) channels-last, the norm's (6, C) coefficients and the
+    """x (B, xw, H, W) channels-last, the norm's coefficients and the
     skip (B, sw, H, W) or None, on the card: widths padded to multiples of 8
     with random values past the 2C and 2S read (``padded``), or 2C and 2S."""
     from remfx_tpu_torch.models.dcunet import ComplexBatchNorm, OnReImBatchNorm
@@ -856,16 +856,18 @@ def _epi_case(kind, C, S, shape, dtype, padded=True, seed=0):
                 t.copy_(torch.tensor([1.3, 0.4, 0.8]).repeat(C, 1))
             elif "var" in name:
                 t.uniform_(0.5, 2.0, generator=g)
-    coef = norm.eval().cuda().eval_affine()
     B, H, W = shape
     width = packed_width if padded else (lambda n: n)
     gd = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(B, H, W, width(2 * C), generator=gd, device="cuda").to(dtype)
+    x = x.permute(0, 3, 1, 2)
+    with torch.no_grad():
+        coef = norm.eval().cuda().coefficients(x)
     skip = None
     if S:
         skip = torch.randn(B, H, W, width(2 * S), generator=gd, device="cuda").to(dtype)
         skip = skip.permute(0, 3, 1, 2)
-    return x.permute(0, 3, 1, 2), coef, skip, 2 * S
+    return x, coef, skip, 2 * S
 
 
 def _epi_check(got, x, coef, skip, skip_channels):
@@ -960,15 +962,24 @@ def test_dcunet_epilogue_wrapper_raises_instead_of_falling_back(cuda):
             dcunet_epilogue(x, coef.double(), skip, s2)
         with pytest.raises(ValueError):
             dcunet_epilogue(x, coef, skip, skip.shape[1] + 2)
+    from remfx_tpu_torch.ops.dcunet_epilogue import _fused, dcunet_epilogue_plain
     with pytest.raises(ValueError, match="backward"):
-        dcunet_epilogue(x.detach().requires_grad_(), coef, skip, s2)
+        _fused(x.detach().requires_grad_(), coef, skip, s2, 0.01)
+    # where autograd records, the op itself takes the plain version
+    before = dcunet_epilogue.launches
+    xg = x.detach().requires_grad_()
+    got = dcunet_epilogue(xg, coef, skip, s2)
+    assert dcunet_epilogue.launches == before and got.requires_grad
+    assert torch.equal(got, dcunet_epilogue_plain(xg, coef, skip, s2))
 
 
 @pytest.mark.parametrize("norm_type", ["bN", "CbN"])
 def test_large_dcunet_on_the_card_takes_the_packed_path(cuda, norm_type):
     """A Large-DCUNet-20 inference on the card: 19 epilogue launches (10
     encoders, 9 decoders) and the CPU's output within 1e-3 of the peak
-    (fp32, TF32 off)."""
+    (fp32, TF32 off). An eval forward that autograd records and a train-mode
+    forward run the plain epilogue: no launch; the recorded one equals
+    inference within the same bound."""
     from remfx_tpu_torch.models import make_dcunet
     from remfx_tpu_torch.ops.dcunet_epilogue import dcunet_epilogue
 
@@ -981,6 +992,12 @@ def test_large_dcunet_on_the_card_takes_the_packed_path(cuda, norm_type):
     got = model.sample(x.to(cuda)).cpu()
     assert dcunet_epilogue.launches == before + 19
     assert ((got - want).abs().max() / want.abs().max()).item() <= CPU_TOL
+    recorded = model.module(x.to(cuda))
+    assert recorded.requires_grad
+    recorded = recorded.detach().cpu()
+    assert ((recorded - want).abs().max() / want.abs().max()).item() <= CPU_TOL
+    model.module.train()(x.to(cuda)).square().sum().backward()
+    assert dcunet_epilogue.launches == before + 19
 
 
 def test_large_dcunet_at_the_chains_shape_transposes_nothing(cuda):

@@ -28,8 +28,8 @@ devices.
   TCN shortens so far that the last rank's span is empty; 1e-6 absolute,
   the labels equal.
 * A DCUNet halo forced to 0 fails the comparison on random data (so the
-  tolerance catches a wrong reach); the DCUNet's windows run the packed
-  path of inference and equal the two-tensor path's whole file; the
+  tolerance catches a wrong reach); the DCUNet's windows run inference's
+  epilogues and equal the whole file's forward that autograd records; the
   contract's error paths.
 """
 
@@ -249,9 +249,10 @@ def test_dcunet_windows_equal_the_whole_file_and_a_zero_halo_does_not(ranks):
 
 @pytest.mark.parametrize("ranks", RANKS)
 def test_dcunet_windows_take_the_packed_path(ranks, monkeypatch):
-    """The plan's windows of a Mini-DCUNet-6 in eval run the packed path of
-    inference (7 epilogues a window) and equal the whole file's forward on
-    the two-tensor path (eval under autograd) within the halo tolerance."""
+    """The plan's windows of a Mini-DCUNet-6 in eval run inference (7
+    epilogues a window, kept weights) and equal the whole file's eval
+    forward that autograd records (weights built in the graph) within the
+    halo tolerance."""
     w, x = _dcunet_pair()
     want = w(x).detach()
     calls = []
