@@ -14,7 +14,9 @@ config of the repo's trained checkpoint of that slot.
 Phases, each printing one JSON line with its elapsed seconds as it ends:
 device, build (nvcc for sm_90a of every csrc/*.cu), kernels (each kernel
 against its plain PyTorch version at the main path's shape, timed),
-render, synth (the data-synthesis path: EffectChainRenderer.render_batch
+blstm_graph (the chain's HDemucs at 24 rows in bf16 with its BLSTMs eager
+and replaying their CUDA graphs: enqueue and card times, bit equality,
+the counters), render, synth (the data-synthesis path: EffectChainRenderer.render_batch
 of the dataset's chain at the repo's default configuration on the 8 clips;
 its labels, -20 LUFS on every output row, the same output again from the
 same seed, card against CPU on 65536 samples, the C++ oracle's golden
@@ -210,9 +212,10 @@ alone, e.g. on four cards):
   there are two cards or more, a dp x tp (FSDP2) step of that TCN at 8 x
   131072 against one process.
 
-Usage: python3 chip_smoke.py [--seed N] [--only kernels|bf16|parallel|sequence]
+Usage: python3 chip_smoke.py [--seed N] [--only kernels|blstm_graph|bf16|parallel|sequence]
 (``--only sequence``: the sequence part of the parallel phase alone;
-``--only kernels``: the kernels line alone.)
+``--only kernels``: the kernels line alone; ``--only blstm_graph``: the
+blstm_graph line alone.)
 Needs one CUDA device: with none it exits non-zero and prints no result.
 """
 
@@ -627,6 +630,71 @@ def dcunet_epilogue_row(seed: int) -> dict:
             "bound_ms": sum(c["bound_ms"] for c in cases.values()),
             "bound_by": "bytes",
             "launches_per_dcunet_forward": launches}
+
+
+def blstm_graph_row(seed: int) -> dict:
+    """One forward of the chain's HDemucs at 24 rows (bf16, 262144 samples,
+    seeded weights) with its BLSTMs eager (``graph_engages`` held false)
+    and with them replaying their CUDA graphs: each side's median over 5
+    forwards of the host's enqueue ms (the call's return, the card idle at
+    its start) beside its ms between CUDA events around the call, which
+    the host's pace sets where it is the slower; the device kernels a
+    forward (torch.profiler); the graphed output equal to the eager one bit
+    for bit on three forwards; and the BLSTM counters' moves."""
+    from remfx_tpu_torch.models import demucs
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    torch.manual_seed(seed)
+    model = make_demucs(device=dev).to(torch.bfloat16).eval()
+    x = (0.1 * torch.randn(24, 1, T, generator=g, device=dev)).to(torch.bfloat16)
+
+    def forward():
+        return model(x)
+
+    def timed() -> dict:
+        enqueue, event = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            forward()
+            b.record()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            b.synchronize()
+            event.append(a.elapsed_time(b))
+        return {"enqueue_ms": statistics.median(enqueue), "event_ms": statistics.median(event),
+                "kernels": sum(device_kernel_counts(forward).values())}
+
+    counts = (demucs.BLSTM.card_calls, demucs.BLSTM.graph_captures, demucs.BLSTM.graph_replays)
+    with torch.no_grad():
+        engages = demucs.graph_engages
+        demucs.graph_engages = lambda *case: False
+        try:
+            want = forward()
+            eager = timed()
+        finally:
+            demucs.graph_engages = engages
+        moved = [(demucs.BLSTM.card_calls, demucs.BLSTM.graph_captures,
+                  demucs.BLSTM.graph_replays)]
+        got = [forward() for _ in range(3)]
+        torch.cuda.synchronize()
+        equal = [torch.equal(y, want) for y in got]
+        check(all(equal), f"the graphed HDemucs equals the eager one bit for bit: {equal}")
+        graphed = timed()
+    moved.append((demucs.BLSTM.card_calls, demucs.BLSTM.graph_captures,
+                  demucs.BLSTM.graph_replays))
+    blocks = sum(1 for m in model.modules() if isinstance(m, demucs.BLSTM))
+    check(moved[0] == counts, f"the eager side counts no card call: {counts} -> {moved[0]}")
+    calls, captures, replays = (b - a for a, b in zip(moved[0], moved[1]))
+    check(captures == blocks and replays == calls - blocks,
+          f"{blocks} BLSTMs: one eager call and one capture each, then replays "
+          f"({calls} calls, {captures} captures, {replays} replays)")
+    return {"name": "blstm_graph", "shape": [24, 1, T], "dtype": "bf16", "blstms": blocks,
+            "eager": eager, "graphed": graphed, "equal": equal,
+            "card_calls": calls, "graph_captures": captures, "graph_replays": replays}
 
 
 def group_norm_row(seed: int) -> dict:
@@ -2743,7 +2811,7 @@ def parallel_phase(seed: int, clips: torch.Tensor) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["kernels", "bf16", "parallel", "sequence"],
+    ap.add_argument("--only", choices=["kernels", "blstm_graph", "bf16", "parallel", "sequence"],
                     help="run the device and build phases and this phase (or this "
                          "part of the parallel phase) alone")
     args = ap.parse_args(argv)
@@ -2782,6 +2850,8 @@ def main(argv=None) -> int:
         ph.done("kernels", kernels=[kernels_phase(clips, gen), phaser_row(
             clips, torch.Generator().manual_seed(args.seed + 1), args.seed + 1),
             group_norm_row(args.seed), dcunet_epilogue_row(args.seed)])
+    elif args.only == "blstm_graph":
+        ph.done("blstm_graph", **blstm_graph_row(args.seed))
     elif args.only == "bf16":
         ph.done("bf16", **bf16_run(args.seed, clips))
     elif args.only:
@@ -2796,6 +2866,8 @@ def main(argv=None) -> int:
     gnrow = group_norm_row(args.seed)
     eprow = dcunet_epilogue_row(args.seed)
     ph.done("kernels", kernels=[row, prow, gnrow, eprow])
+    ph.done("blstm_graph", **blstm_graph_row(args.seed))
+    torch.cuda.empty_cache()
     phaser.launches = 0  # no path before the channel's renders a phaser
 
     # ---- the main path: counts at 0 just before, read just after ----

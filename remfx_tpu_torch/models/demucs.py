@@ -44,6 +44,7 @@ are those of plain ``conv``/``conv_transpose``; here they are plain.
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +53,7 @@ from torch import nn
 from remfx_tpu_torch.models.lstm import LSTM
 from remfx_tpu_torch.ops.group_norm import group_norm
 from remfx_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
+from remfx_tpu_torch.utils.spans import span
 
 
 NORM_GROUPS = 4
@@ -130,21 +132,112 @@ class LayerScale(nn.Module):
         return self.scale[:, None] * x
 
 
+def graph_engages(is_cuda: bool, grad_enabled: bool, training: bool, capturing: bool) -> bool:
+    """Whether a ``BLSTM`` call replays a CUDA graph: inference on the card
+    with autograd recording nothing, outside any capture. Every other call
+    (the CPU, training, autograd, someone else's capture) runs eagerly."""
+    return is_cuda and not grad_enabled and not training and not capturing
+
+
 class BLSTM(nn.Module):
     """2-layer BiLSTM + Linear on overlapping frames of ``max_steps``
     (stride max_steps // 2), re-stitched from each frame's centre; residual
-    skip. x: (B, C, T)."""
+    skip. x: (B, C, T).
+
+    Where ``graph_engages``, the block replays a CUDA graph of its work but
+    the residual add: cuDNN's LSTM is a few small kernels a step, which the
+    host otherwise issues one by one slower than the card runs them. A
+    graph is kept for each key (the input's shape, dtype and device, and
+    the parameters' data pointers, so moved or reassigned weights capture
+    anew). A key's first call runs eagerly, so a shape that never comes
+    back pays no capture; its second warms up on the capture stream and
+    captures; from then on a call copies ``x`` into the graph's input and
+    replays, and the residual add writes a fresh tensor, so no replay
+    overwrites what a caller holds. The weights are read where they lie:
+    cuDNN's copy of bf16 weights into one buffer (torch flattens no bf16
+    LSTM) is in the graph, device copies with no host work, and the
+    parameters' storage stays the caller's (DDP's, FSDP's). A module keeps
+    ``graph_keys`` keys, the least recently used dropped first;
+    ``train(True)`` drops them all. The graphs of a device share one memory
+    pool, safe as their replays run one after another on the caller's
+    stream and each keeps its input and output held, and one capture
+    stream, so that the pool's blocks are reused across captures and one
+    cuBLAS workspace (32 MiB on an H100) serves them all."""
 
     max_steps = 200
+    graph_keys = 4
+    # counters (utils/spans.py): calls that satisfy graph_engages, captures, replays
+    card_calls = 0
+    graph_captures = 0
+    graph_replays = 0
+    _capture_state = {}  # device -> (memory pool, capture stream)
 
     def __init__(self, dim: int):
         super().__init__()
         self.lstm = LSTM(dim, dim, num_layers=2, bidirectional=True)
         self.linear = nn.Linear(2 * dim, dim)
+        # key -> (graph, its input, its output), or None after the first call
+        self._graphs = OrderedDict()
+
+    def train(self, mode: bool = True):
+        if mode:
+            self._graphs.clear()
+        return super().train(mode)
+
+    def __getstate__(self):
+        # a copy (deepcopy, pickle) starts with no graphs: they are the card's
+        return {**super().__getstate__(), "_graphs": OrderedDict()}
 
     def forward(self, x):
+        capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
+        if not graph_engages(x.is_cuda, torch.is_grad_enabled(), self.training, capturing):
+            return self._stitched(x) + x
+        BLSTM.card_calls += 1
+        key = (tuple(x.shape), x.dtype, x.device, self._pointers())
+        if key not in self._graphs:
+            self._graphs[key] = None
+            if len(self._graphs) > self.graph_keys:
+                self._graphs.popitem(last=False)
+            return self._stitched(x) + x
+        self._graphs.move_to_end(key)
+        if self._graphs[key] is None:
+            self._graphs[key] = self._capture(x)
+            BLSTM.graph_captures += 1
+        graph, static_x, static_y = self._graphs[key]
+        with span("lstm"):
+            static_x.copy_(x)
+            graph.replay()
+            BLSTM.graph_replays += 1
+            return static_y + x
+
+    def _pointers(self) -> tuple:
+        return tuple(p.data_ptr() for p in self.parameters())
+
+    def _capture(self, x):
+        """-> (graph, its input, its output) of ``_stitched`` at ``x``'s key,
+        warmed up and captured on the device's capture stream."""
+        device = x.device
+        if device not in BLSTM._capture_state:
+            with torch.cuda.device(device):
+                BLSTM._capture_state[device] = (torch.cuda.graph_pool_handle(),
+                                                torch.cuda.Stream(device))
+        pool, stream = BLSTM._capture_state[device]
+        static_x = x.clone(memory_format=torch.contiguous_format)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            self._stitched(static_x)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: CUDA calls of the caller's other threads (a loader's
+        # pinned copies) do not break the capture
+        with torch.cuda.device(device), torch.cuda.graph(
+                graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+            static_y = self._stitched(static_x)
+        return graph, static_x, static_y
+
+    def _stitched(self, x):
+        """The block without its residual add."""
         B, C, T = x.shape
-        y = x
         framed = T > self.max_steps
         if framed:
             width = self.max_steps
@@ -164,7 +257,7 @@ class BLSTM(nn.Module):
             if nframes > 1:
                 out.append(frames[:, nframes - 1, :, limit:])
             x = torch.cat(out, dim=-1)[..., :T]
-        return x + y
+        return x
 
 
 class LocalState(nn.Module):

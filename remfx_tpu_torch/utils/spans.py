@@ -39,7 +39,10 @@ Spans, outermost first:
     the multi-head attention of an ``ImprovedTransformerLayer``, inside
     ``dptnet.intra`` or ``dptnet.inter``.
 ``lstm``
-    ``models/lstm.py:LSTM.forward``.
+    ``models/lstm.py:LSTM.forward``; in HDemucs's inference on the card,
+    a ``models/demucs.py:BLSTM`` call that replays its CUDA graph (the
+    input's copy, the replay and the residual add): the LSTM's kernels run
+    inside the graph, where no span records.
 ``groupnorm``
     ``ops/group_norm.py:group_norm``: a GroupNorm of HDemucs with the
     activation it takes (and a DConv's LayerScale and residual add), the
@@ -74,6 +77,10 @@ Counters, plain process-wide ints bumped on the host and never synced:
 ``phaser.launches``, ``phaser_serial.launches`` (``ops/phaser.py``),
 ``group_norm.launches`` (``ops/group_norm.py``)
     calls of the hand-written kernels.
+``BLSTM.card_calls``, ``BLSTM.graph_captures``, ``BLSTM.graph_replays`` (``models/demucs.py``)
+    HDemucs's BLSTM calls that satisfy ``graph_engages`` (inference on the
+    card outside a capture), the CUDA graphs captured, and the replays
+    (a key's first call runs eagerly, its second captures and replays).
 ``dcunet_epilogue.launches`` (``ops/dcunet_epilogue.py``)
     launches of the DCUNet's eval epilogue kernel on the card: one a
     normed block of an inference, 19 a Large-DCUNet-20 forward; none in

@@ -1019,3 +1019,137 @@ def test_large_dcunet_at_the_chains_shape_transposes_nothing(cuda):
     names = {e.key for e in prof.key_averages()}
     assert not [n for n in names if "nchwToNhwc" in n or "nhwcToNchw" in n or "CatArray" in n
                 or "AddPadding" in n]
+
+
+# ---------------------------------------------------------------- HDemucs's BLSTM graph
+
+# the chain's two BLSTM shapes at 24 rows: frequency encoders 4 and 5 of an
+# HDemucs at nfft 4096 and 262144 samples (hidden 192 over 256 steps, framed
+# into 72 sequences of 200; hidden 384 over 128 steps)
+BLSTM_SHAPES = [(24, 192, 256), (24, 384, 128)]
+
+
+def _blstm(dim, dev, seed=0):
+    from remfx_tpu_torch.models.demucs import BLSTM
+
+    torch.manual_seed(seed)
+    return BLSTM(dim).to(dev, torch.bfloat16).eval()
+
+
+def _bf16(shape, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+
+def _blstm_counts():
+    from remfx_tpu_torch.models.demucs import BLSTM
+
+    return BLSTM.card_calls, BLSTM.graph_captures, BLSTM.graph_replays
+
+
+def _moved(before):
+    return tuple(a - b for a, b in zip(_blstm_counts(), before))
+
+
+def _eager(block, x):
+    return block._stitched(x) + x
+
+
+@pytest.mark.parametrize("shape", BLSTM_SHAPES, ids=["h192", "h384"])
+def test_blstm_graph_replays_equal_the_eager_block_bit_for_bit(cuda, shape):
+    """bf16 at the chain's shapes: the first call runs eagerly, the second
+    captures and replays, the later ones replay new inputs; every output
+    equals the eager block's bit for bit, and each replay's output is the
+    caller's: read after the later replays, it has not moved."""
+    block = _blstm(shape[1], cuda)
+    xs = [_bf16(shape, cuda, seed) for seed in range(4)]
+    before = _blstm_counts()
+    with torch.no_grad():
+        got = [block(x) for x in xs]
+        want = [_eager(block, x) for x in xs]
+    torch.cuda.synchronize()
+    assert _moved(before) == (4, 1, 3)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), k
+    assert got[1].data_ptr() != got[2].data_ptr()
+
+
+def test_blstm_graph_reads_weights_copied_in_place_and_recaptures_moved_ones(cuda):
+    """Weights copied into the same storage are read by the next replay;
+    weights that ``load_state_dict(assign=True)`` or ``.to()`` put elsewhere
+    are a new key, which runs eagerly once and then captures anew."""
+    shape = BLSTM_SHAPES[1]
+    block = _blstm(shape[1], cuda)
+    x = _bf16(shape, cuda, 0)
+    other = {k: v + 0.01 for k, v in _blstm(shape[1], cuda, seed=1).state_dict().items()}
+    before = _blstm_counts()
+    with torch.no_grad():
+        block(x)
+        block(x)
+        block.load_state_dict(other)  # in place: the same key, replayed
+        assert torch.equal(block(x), _eager(block, x))
+        assert _moved(before) == (3, 1, 2)
+        block.load_state_dict({k: v.clone() for k, v in other.items()}, assign=True)
+        for _ in range(2):
+            assert torch.equal(block(x), _eager(block, x))
+        assert _moved(before) == (5, 2, 3)
+        block.to(torch.float32).to(torch.bfloat16)
+        for _ in range(2):
+            assert torch.equal(block(x), _eager(block, x))
+        assert _moved(before) == (7, 3, 4)
+
+
+def test_blstm_graph_captures_a_new_shape_and_keeps_the_latest_keys(cuda):
+    """A new shape is a key of its own; beyond ``graph_keys`` the least
+    recently used is dropped, and its shape runs eagerly again."""
+    from remfx_tpu_torch.models.demucs import BLSTM
+
+    block = _blstm(192, cuda)
+    shapes = [(rows, 192, 256) for rows in (8, 16, 24, 32, 40)]
+    before = _blstm_counts()
+    with torch.no_grad():
+        for shape in shapes:
+            x = _bf16(shape, cuda, 0)
+            for _ in range(2):
+                assert torch.equal(block(x), _eager(block, x))
+        assert len(block._graphs) == BLSTM.graph_keys == 4
+        assert [key[0] for key in block._graphs] == [tuple(s) for s in shapes[1:]]
+        assert _moved(before) == (10, 5, 5)
+        x = _bf16(shapes[0], cuda, 1)
+        assert torch.equal(block(x), _eager(block, x))  # dropped: eager again
+        assert _moved(before) == (11, 5, 5)
+
+
+@pytest.mark.parametrize("mode", ["train", "autograd"])
+def test_blstm_on_the_card_outside_inference_runs_eagerly(cuda, mode):
+    block = _blstm(192, cuda)
+    if mode == "train":
+        block.train()
+    x = _bf16(BLSTM_SHAPES[0], cuda, 0)
+    before = _blstm_counts()
+    with torch.set_grad_enabled(mode == "autograd"):
+        for _ in range(3):
+            y = block(x)
+    assert y.requires_grad == (mode == "autograd")
+    assert _moved(before) == (0, 0, 0)
+    assert not block._graphs
+
+
+def test_small_hdemucs_chain_repeats_its_eager_batch_with_the_graph_engaged(cuda):
+    """A bf16 chain with one small HDemucs (two BLSTMs, one of them framed):
+    three batches, the first eager, the second capturing, the third
+    replaying, give one output bit for bit."""
+    torch.manual_seed(0)
+    model = HDemucs(sources=("mixture",), audio_channels=1, channels=8, nfft=64, depth=3,
+                    norm_starts=1, dconv_lstm=2, dconv_attn=1)
+    wrapper = ModelWrapper(model, residual=True).to(cuda, torch.bfloat16)
+    chain = ChainInference({"RandomPedalboardCompressor": wrapper}, SR)
+    x = (0.3 * torch.randn(4, 1, 16384, device=cuda)).to(torch.bfloat16)
+    labels = torch.zeros(4, len(ALL_EFFECTS), device=cuda)
+    labels[:, ALL_EFFECTS.index("compressor")] = 1.0
+    blocks = sum(1 for m in model.modules() if type(m).__name__ == "BLSTM")
+    before = _blstm_counts()
+    outs = [chain.remove(x, labels)[0] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert blocks == 2 and _moved(before) == (3 * blocks, blocks, 2 * blocks)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
